@@ -1,0 +1,195 @@
+"""The HVED fusion network in NCDHW (counterpart of
+`xlstm_hved_tpu/models/hved.py::HVEDFusionNet`, full mode).
+
+Four modality streams are folded into channel blocks of one tensor (stream m
+owns channels [m*C, (m+1)*C)) and run through grouped convs. Per level the
+streams' DRB heads give Gaussian experts, fused with the N(0, 1) prior by a
+masked product of experts over the keep-mask; the sample (or the mean when
+`deterministic`) is upsampled by the VU block into the decoder skip. The
+skip-return chain gates each stream's encoder input, a ViL block mixes the
+bottleneck tokens, and the seg and recon decoders are coupled by DuSE.
+
+Ported: the MVAE presets with the double-conv basic module (XLSTM_HVED and
+its ablations, the U_HVEDConv* family without the ViL decoder). The fusion
+and plain multi-stream arms, the ext-resnet and ViL decoder blocks, the
+prefix/suffix split of the hoisted sweep and the discriminator come later.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from xlstm_hved_torch.config import HVEDConfig, features_per_level
+from xlstm_hved_torch.nn.blocks import (BasicConv, BlockDiagEncoderStage,
+                                        BlockDiagSingleConv, DecoderStage,
+                                        EncoderStage, block_diag_conv, conv3d,
+                                        resize_trilinear)
+from xlstm_hved_torch.nn.dusfe import DuSEAttention
+from xlstm_hved_torch.nn.skr import SkrGate
+from xlstm_hved_torch.nn.vil import ViLLayer3D
+from xlstm_hved_torch.ops.poe import product_of_experts, reparametrize, stack_prior
+
+
+# DuSE couples the first three decoder levels (the reference's j <= 2)
+_DUSE_LEVELS = 3
+
+
+class HVEDOutput(NamedTuple):
+    seg: Optional[torch.Tensor]          # (B, 3, D, H, W) probabilities
+    mu: Tuple[torch.Tensor, ...]         # per level (B, 5, C, D', H', W')
+    logvar: Tuple[torch.Tensor, ...]
+    recon: Optional[torch.Tensor]        # (B, 4, D, H, W)
+
+
+def _check_ported(cfg: HVEDConfig):
+    missing = []
+    if not cfg.mvae or cfg.fusion:
+        missing.append("the non-MVAE fusion/plain multi-stream arms")
+    if not cfg.mvae_reduction:
+        missing.append("mvae_reduction=False")
+    if cfg.basic_module != "double_conv":
+        missing.append(f"basic_module={cfg.basic_module!r}")
+    if cfg.vil_decoder:
+        missing.append("the ViL decoder block")
+    if cfg.fusion_level < cfg.num_levels:
+        missing.append("single-stream deep levels (fusion_level < num_levels)")
+    if cfg.compute_dtype != "float32":
+        missing.append(f"compute_dtype={cfg.compute_dtype!r} (the port runs fp32)")
+    for flag in ("recon_decoder", "recon_skip", "shared_recon", "final_sigmoid"):
+        if not getattr(cfg, flag):
+            missing.append(f"{flag}=False")
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+class HVEDFusionNet(nn.Module):
+    def __init__(self, cfg: HVEDConfig):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        M = cfg.multi_stream
+        levels = cfg.num_levels
+        enc_f, dec_f, lat = cfg.enc_f_maps, cfg.dec_f_maps, cfg.mvae_latents
+        order = cfg.layer_order
+
+        self.init_blocks = block_diag_conv(M, cfg.in_channels, enc_f[0], 1)
+        for lv in range(levels):
+            cin = enc_f[0] if lv == 0 else enc_f[lv - 1]
+            self.add_module(f"encoders_{lv}", BlockDiagEncoderStage(
+                M, cin, enc_f[lv], cfg.num_block[lv], apply_pooling=lv > 0,
+                order=order))
+            self.add_module(f"drb_{lv}", BlockDiagSingleConv(
+                M, enc_f[lv], 2 * lat[lv], stride=2, order=order))
+            self.add_module(f"vu_{lv}", BasicConv(lat[lv], dec_f[lv], 1))
+            self.add_module(f"conv_block_{lv}", BasicConv(
+                dec_f[lv], dec_f[lv], 3, groups=dec_f[lv]))
+        if cfg.skip_return:
+            self.x0_init = conv3d(M * cfg.in_channels, enc_f[0], 1)
+            for lv in range(1, levels):
+                self.add_module(f"skr_att_{lv}", SkrGate(enc_f[lv - 1]))
+                self.add_module(f"skr_encoder_{lv}", EncoderStage(
+                    enc_f[lv - 1], enc_f[lv], cfg.num_block[lv], order))
+        if cfg.mid_vil:
+            self.mvil = ViLLayer3D(dec_f[-1], cfg.vil_chunk_size, cfg.mlstm_kernel)
+
+        rev_dec = list(reversed(dec_f))
+        rev_rec = list(reversed(features_per_level(cfg.rec_f_maps, levels)))
+        for j in range(levels - 1):
+            self.add_module(f"sdecoder_{j}", DecoderStage(
+                rev_dec[j], rev_dec[j + 1], rev_dec[j + 1], rsm=True, order=order))
+            self.add_module(f"rdecoder_0_{j}", DecoderStage(
+                rev_rec[j], rev_dec[j + 1], rev_rec[j + 1], rsm=False, order=order))
+            if cfg.seg_recon_decoder and j < _DUSE_LEVELS:
+                self.add_module(f"dusfe_{j}", DuSEAttention(rev_dec[j + 1]))
+        # one recon stream shared by the M modalities: M output channels
+        self.rfinal_0 = conv3d(rev_rec[-1], M, 1)
+        if cfg.seg_recon_decoder:
+            self.sfinal_0 = conv3d(rev_dec[-1], M, 1)
+            self.final_conv = conv3d(M, cfg.out_channels, 1)
+        else:
+            self.final_conv = conv3d(rev_dec[-1], cfg.out_channels, 1)
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None, *,
+                instance_missing: bool = False, seg: bool = True,
+                recon: bool = False, deterministic: bool = False,
+                generator: Optional[torch.Generator] = None) -> HVEDOutput:
+        """x: (B, M, D, H, W). keep: (4,) or (B, 4) bool, True = present; by
+        default all present, or inferred per instance from all-zero channels
+        when `instance_missing`. Sampling (deterministic=False) draws its
+        noise from `generator`. BatchNorm follows the module's train/eval
+        mode."""
+        cfg = self.cfg
+        M = cfg.multi_stream
+        B = x.shape[0]
+        levels = cfg.num_levels
+        div = 2 ** levels
+        if any(s % div for s in x.shape[2:]):
+            raise ValueError(
+                f"spatial dims {tuple(x.shape[2:])} must be divisible by "
+                f"2^num_levels = {div} for the MVAE x2-upsample path")
+        if keep is None:
+            if instance_missing:
+                keep = x.abs().sum(dim=(2, 3, 4)) != 0
+            else:
+                keep = torch.ones(M, dtype=torch.bool, device=x.device)
+        keep = torch.as_tensor(keep, device=x.device).bool()
+        keep_b = keep[None, :].expand(B, M) if keep.ndim == 1 else keep
+        lat = cfg.mvae_latents
+
+        x = x.to(self.init_blocks.weight.dtype)
+        xs = self.init_blocks(x)
+        mu_list, logvar_list, rec_feats = [], [], []
+        skr_feat = None
+        for lv in range(levels):
+            if cfg.skip_return and skr_feat is not None:
+                gate = getattr(self, f"skr_att_{lv}")(skr_feat)
+                xs = gate * xs + xs
+            xs = getattr(self, f"encoders_{lv}")(xs)
+
+            # folded (B, M*2L, ...) -> (B, M, 2L, ...): mu first, logvar second
+            drb = getattr(self, f"drb_{lv}")(xs)
+            drb = drb.reshape(B, M, 2 * lat[lv], *drb.shape[2:])
+            mu_e, logvar_e = stack_prior(drb[:, :, :lat[lv]], drb[:, :, lat[lv]:])
+            mu_list.append(mu_e)
+            logvar_list.append(logvar_e)
+
+            pd_mu, pd_logvar = product_of_experts(mu_e, logvar_e, keep_b)
+            z = reparametrize(pd_mu, pd_logvar, deterministic, generator)
+            z = getattr(self, f"vu_{lv}")(z)
+            z = resize_trilinear(z, [2 * s for s in z.shape[2:]])
+            rec_feats.insert(0, getattr(self, f"conv_block_{lv}")(z))
+
+            if cfg.skip_return:
+                skr_feat = (self.x0_init(x) if skr_feat is None
+                            else getattr(self, f"skr_encoder_{lv}")(skr_feat))
+
+        if cfg.mid_vil:
+            vil_in = rec_feats[0] + skr_feat if skr_feat is not None else rec_feats[0]
+            rec_feats[0] = rec_feats[0] + self.mvil(vil_in)
+
+        bottleneck, skips = rec_feats[0], rec_feats[1:]
+        seg_out = recon_out = None
+        rx = sx = bottleneck
+        if cfg.seg_recon_decoder:
+            # coupled decode: DuSE mixes the recon and seg branches per level,
+            # so the recon ladder runs whenever seg does
+            for j in range(levels - 1):
+                rx = getattr(self, f"rdecoder_0_{j}")(skips[j], rx)
+                if seg:
+                    sx = getattr(self, f"sdecoder_{j}")(skips[j], sx)
+                    if j < _DUSE_LEVELS:
+                        rx, sx = getattr(self, f"dusfe_{j}")(rx, sx)
+            if seg:
+                seg_out = torch.sigmoid(self.final_conv(self.sfinal_0(sx)))
+        else:
+            for j in range(levels - 1 if recon else 0):
+                rx = getattr(self, f"rdecoder_0_{j}")(skips[j], rx)
+            for j in range(levels - 1 if seg else 0):
+                sx = getattr(self, f"sdecoder_{j}")(skips[j], sx)
+            if seg:
+                seg_out = torch.sigmoid(self.final_conv(sx))
+        if recon:
+            recon_out = self.rfinal_0(rx)
+        return HVEDOutput(seg_out, tuple(mu_list), tuple(logvar_list), recon_out)

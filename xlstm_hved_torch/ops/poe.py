@@ -1,0 +1,76 @@
+"""Product-of-Experts latent fusion and reparameterization
+(counterpart of `xlstm_hved_tpu/ops/poe.py`).
+
+Expert stacks are (B, E, C, D, H, W): axis 1 indexes the experts, with the
+standard-normal prior at expert 0 and the modalities at 1..4. The subset is
+a boolean keep-mask over the modality experts; multiplying by the constant
+0/1 mask removes a dropped expert from both sums and from the gradient.
+The KL terms belong to training and come with that slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+LOGVAR_CLIP = 50.0
+POE_EPS = 1e-8
+
+
+def clip_logvar(logvar: torch.Tensor, limit: float = LOGVAR_CLIP) -> torch.Tensor:
+    """Clamp logvars to ±limit so exp(logvar) stays finite."""
+    return torch.clamp(logvar, -limit, limit)
+
+
+def stack_prior(mod_mu: torch.Tensor, mod_logvar: torch.Tensor):
+    """Prepend the N(0, 1) prior to (B, M, ...) per-modality Gaussians.
+
+    Returns (B, M+1, ...) stacks with mu = logvar = 0 at expert 0 and the
+    modality logvars clipped.
+    """
+    mu = torch.cat([torch.zeros_like(mod_mu[:, :1]), mod_mu], dim=1)
+    logvar = torch.cat([torch.zeros_like(mod_logvar[:, :1]),
+                        clip_logvar(mod_logvar)], dim=1)
+    return mu, logvar
+
+
+def product_of_experts(mu: torch.Tensor, logvar: torch.Tensor,
+                       keep: torch.Tensor, eps: float = POE_EPS):
+    """Precision-weighted Gaussian product over the kept experts + prior.
+
+    Args:
+        mu, logvar: (B, E, ...) expert parameters, prior at expert 0.
+        keep: (B, 4) or (4,) bool, True where the modality expert is kept.
+            The prior is always kept.
+    Returns:
+        (pd_mu, pd_logvar), each (B, ...).
+    """
+    if keep.ndim == 1:
+        keep = keep[None, :]
+    keep = keep.to(device=mu.device).bool()
+    if keep.shape[0] == 1 and mu.shape[0] != 1:
+        keep = keep.expand(mu.shape[0], keep.shape[1])
+    prior = torch.ones((keep.shape[0], 1), dtype=torch.bool, device=mu.device)
+    keep_e = torch.cat([prior, keep], dim=1)
+    keep_e = keep_e.reshape(keep_e.shape + (1,) * (mu.ndim - 2)).to(mu.dtype)
+
+    var = torch.exp(logvar) + eps
+    precision = keep_e / var
+    sum_t = precision.sum(dim=1)
+    pd_mu = (mu * precision).sum(dim=1) / sum_t
+    pd_logvar = -torch.log(sum_t)
+    return pd_mu, pd_logvar
+
+
+def reparametrize(mu: torch.Tensor, logvar: torch.Tensor,
+                  deterministic: bool = False,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """mu + eps * exp(logvar / 2) with eps ~ N(0, 1) drawn from `generator`;
+    the mean itself when `deterministic`."""
+    if deterministic:
+        return mu
+    if generator is None:
+        raise ValueError("reparametrize needs a torch.Generator when sampling")
+    eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
+                      device=mu.device)
+    return mu + eps * torch.exp(0.5 * logvar)
