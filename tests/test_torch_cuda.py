@@ -1,5 +1,7 @@
-"""PyTorch port on the card: the CUDA mLSTM forward kernel against its plain
-twin, and the model's kernel path against its plain path. These need a CUDA
+"""PyTorch port on the card: the CUDA mLSTM kernels (forward, states-saving
+forward, backward) against their plain twins, the differentiable wrapper
+against autograd through the plain scan, and the model's kernel path against
+its plain path. These need a CUDA
 device and nvcc; without a card they skip. Run them on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -10,7 +12,9 @@ need not have.)
 import pytest
 import torch
 
-from xlstm_hved_torch.models import find_model_using_name
+from xlstm_hved_torch.config import TrainConfig
+from xlstm_hved_torch.engine.train import create_train_state, make_train_step
+from xlstm_hved_torch.models import Discriminator, find_model_using_name
 from xlstm_hved_torch.ops import mlstm_cuda
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise
 
@@ -26,12 +30,19 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, B, NH, S, DH, seed=0):
+def _inputs(dev, B, NH, S, DH, seed=0, case="realistic"):
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn(B, NH, S, DH, generator=g, device=dev) for _ in range(3))
     ig = 0.5 * torch.randn(B, NH, S, generator=g, device=dev)
     fg = 3.0 + 3.0 * torch.rand(B, NH, S, generator=g, device=dev)
+    if case == "denominator":  # tiny attention mass: the e^{-m} branch is live
+        ig, fg = ig * 2.0 - 8.0, fg / 3.0
     return q, k, v, ig, fg
+
+
+def _scaled_err(out, ref):
+    """max |out - ref| over max |ref|, the bound chip_smoke.py states."""
+    return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
 @pytest.mark.parametrize("B,NH,S,DH,L", [(1, 4, 4096, 16, 128), (1, 4, 6144, 16, 128),
@@ -54,8 +65,49 @@ def test_mlstm_forward_matches_chunkwise_and_counts(dev):
     assert mlstm_cuda.run_kernel.launches == before + 1
     ref = mlstm_chunkwise(q, k, v, ig, fg, chunk_size=128)
     torch.testing.assert_close(out, ref, rtol=1e-3, atol=2e-4)
-    with pytest.raises(RuntimeError, match="backward"):
-        mlstm_cuda.mlstm_forward(q.requires_grad_(True), k, v, ig, fg)
+    with pytest.raises(ValueError, match="bwd_mode"):
+        mlstm_cuda.mlstm_forward(q, k, v, ig, fg, bwd_mode="xla")
+
+
+@pytest.mark.parametrize("B,NH,S,DH,L,case", [(1, 4, 4096, 16, 128, "realistic"),
+                                              (1, 4, 4000, 16, 128, "realistic"),
+                                              (1, 2, 200, 8, 64, "denominator"),
+                                              (2, 2, 97, 16, 32, "realistic")])
+def test_states_and_backward_kernels_match_twins(dev, B, NH, S, DH, L, case):
+    prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH, case=case), L)
+    states = mlstm_cuda.run_states_kernel(*prepared)
+    states_ref = mlstm_cuda.mlstm_forward_states_reference(*prepared)
+    for got, want in zip(states, states_ref):
+        assert torch.isfinite(got).all()
+        assert _scaled_err(got, want) <= 2e-5
+    # the entry offsets m* are formed by the same fp32 operations
+    assert torch.equal(states[3], states_ref[3])
+    g = torch.randn_like(prepared[0])
+    grads = mlstm_cuda.run_bwd_kernel(*prepared[:3], g, *prepared[3:], *states_ref[1:])
+    grads_ref = mlstm_cuda.mlstm_backward_reference(*prepared[:3], g, *prepared[3:],
+                                                    *states_ref[1:])
+    torch.cuda.synchronize()
+    for got, want in zip(grads, grads_ref):
+        assert torch.isfinite(got).all()
+        assert _scaled_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("S,bwd_mode", [(300, "fused"), (300, "scan"), (2000, "fused")])
+def test_mlstm_forward_gradients_match_autograd_through_scan(dev, S, bwd_mode):
+    inputs = _inputs(dev, 1, 4, S, 16, seed=2)
+    w = torch.randn(1, 4, S, 16, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    counts = (mlstm_cuda.run_states_kernel.launches, mlstm_cuda.run_bwd_kernel.launches)
+    (w * torch.tanh(mlstm_cuda.mlstm_forward(*leaves, bwd_mode=bwd_mode))).sum().backward()
+    launched = (mlstm_cuda.run_states_kernel.launches - counts[0],
+                mlstm_cuda.run_bwd_kernel.launches - counts[1])
+    assert launched == ((1, 1) if bwd_mode == "fused" else (0, 0))
+    ref_leaves = [t.clone().requires_grad_(True) for t in inputs]
+    (w * torch.tanh(mlstm_chunkwise(*ref_leaves))).sum().backward()
+    for got, want in zip(leaves, ref_leaves):
+        assert torch.isfinite(got.grad).all()
+        assert _scaled_err(got.grad, want.grad) <= 1e-3
 
 
 def test_model_kernel_path_matches_plain_path(dev):
@@ -71,3 +123,21 @@ def test_model_kernel_path_matches_plain_path(dev):
         ref = plain(x, recon=True, deterministic=True)
     assert float((out.seg - ref.seg).abs().max()) <= 1e-3
     assert float((out.recon - ref.recon).abs().max()) <= 3.5e-3
+
+
+def test_train_step_goes_through_the_kernels(dev):
+    cfg = TrainConfig(crop_size=(32, 32, 32))
+    model = find_model_using_name("XLSTM_HVED", device=dev, seed=4)
+    disc = Discriminator(f_maps=8, kernel=3)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand(1, 4, 32, 32, 32, generator=gen, device=dev)
+    mask = (torch.rand(1, 3, 32, 32, 32, generator=gen, device=dev) > 0.7).float()
+    state = create_train_state(model, disc, cfg, 0, x, init_scheme="reference")
+    step = make_train_step(model, disc, cfg)
+    counters = (mlstm_cuda.run_kernel, mlstm_cuda.run_states_kernel, mlstm_cuda.run_bwd_kernel)
+    before = [fn.launches for fn in counters]
+    state, metrics = step(state, x, mask)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 2, 2]
+    assert state.step == 1
+    assert all(torch.isfinite(torch.as_tensor(float(v))) for v in metrics.values())

@@ -1,6 +1,8 @@
-"""PyTorch port: the plain mLSTMs and the CUDA kernel's plain twin against
-the JAX package (chunkwise scan and the Pallas kernel in interpret mode).
-Tolerances are those of tests/test_mlstm.py for the Pallas kernel."""
+"""PyTorch port: the plain mLSTMs, their gradients and the CUDA kernels'
+plain twins against the JAX package (chunkwise scan and the Pallas kernels
+in interpret mode). Tolerances are those of tests/test_mlstm.py for the
+Pallas kernels."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,11 +10,12 @@ import torch
 
 import _torch_port  # noqa: F401  (TF32 off)
 from xlstm_hved_tpu.ops.mlstm import mlstm_chunkwise as j_chunkwise
-from xlstm_hved_tpu.ops.mlstm_pallas import mlstm_pallas
+from xlstm_hved_tpu.ops.mlstm_pallas import _m_entry_chain, _pallas_forward, _prep, mlstm_pallas
 from xlstm_hved_torch.nn.vil import MatrixLSTMCell
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise, mlstm_quadratic
-from xlstm_hved_torch.ops.mlstm_cuda import (mlstm_forward, mlstm_forward_reference,
-                                             prepare)
+from xlstm_hved_torch.ops.mlstm_cuda import (mlstm_backward, mlstm_forward,
+                                             mlstm_forward_reference,
+                                             mlstm_forward_states_reference, prepare)
 
 ATOL, RTOL = 2e-4, 1e-3
 
@@ -28,6 +31,9 @@ def _inputs(seed, B=1, NH=2, S=80, DH=16, case="realistic"):
         ig = np.broadcast_to(np.linspace(0.0, 200.0, S, dtype=np.float32), ig.shape).copy()
     elif case == "deep_forget":    # m_t far below -60: the clamped normaliser
         ig, fg = ig - 100.0, fg - 20.0
+    elif case == "denominator":    # tiny attention mass: the e^{-m} branch is live
+        ig = (-8.0 + rng.randn(B, NH, S)).astype(np.float32)
+        fg = (1.0 + rng.rand(B, NH, S)).astype(np.float32)
     return q, k, v, ig, fg
 
 
@@ -92,8 +98,8 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
     q, k, v, ig, fg = map(torch.from_numpy, _inputs(6, S=64))
     with pytest.raises(ValueError, match="CUDA"):
         mlstm_forward(q, k, v, ig, fg)                     # CPU tensors
-    with pytest.raises(RuntimeError, match="backward"):
-        mlstm_forward(q.clone().requires_grad_(True), k, v, ig, fg)
+    with pytest.raises(ValueError, match="bwd_mode"):
+        mlstm_forward(q, k, v, ig, fg, bwd_mode="xla")     # only "fused" and "scan"
     q8, k8, v8 = (t[..., :12] for t in (q, k, v))
     with pytest.raises(ValueError, match="head width"):
         mlstm_forward(q8, k8, v8, ig, fg)
@@ -110,3 +116,68 @@ def test_matrix_lstm_cell_dispatch_on_cpu():
     cell.mlstm_kernel = True  # asking for the kernel on CPU tensors raises
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         cell(x, x, x)
+
+
+def _torch_grads(fn, inputs, weight):
+    leaves = [torch.from_numpy(t).requires_grad_(True) for t in inputs]
+    (torch.from_numpy(weight) * torch.sin(fn(*leaves))).sum().backward()
+    return [t.grad.numpy() for t in leaves]
+
+
+def _jax_grads(fn, inputs, weight):
+    loss = lambda args: jnp.sum(jnp.asarray(weight) * jnp.sin(fn(*args)))
+    return [np.asarray(g) for g in jax.grad(loss)(tuple(map(jnp.asarray, inputs)))]
+
+
+# the gradient cases of tests/test_mlstm.py: the wide igate spread (one and
+# several chunks), deep forgetting, and the small multi-chunk cases
+GRAD_CASES = [(64, 64, "wide_igate"), (64, 16, "wide_igate"), (48, 16, "deep_forget"),
+              (48, 16, "realistic"), (40, 16, "realistic"), (97, 32, "realistic")]
+
+
+@pytest.mark.parametrize("S,L,case", GRAD_CASES)
+def test_chunkwise_autograd_matches_jax_grad(S, L, case):
+    """Autograd through the plain scan (the bwd_mode="scan" oracle) against
+    jax.grad of the JAX scan; finite on the JAX NaN regressions."""
+    inputs = _inputs(S + 3, NH=2, S=S, DH=8, case=case)
+    weight = np.random.RandomState(S).randn(1, 2, S, 8).astype(np.float32)
+    got = _torch_grads(lambda *a: mlstm_chunkwise(*a, chunk_size=L), inputs, weight)
+    want = _jax_grads(lambda *a: j_chunkwise(*a, chunk_size=L), inputs, weight)
+    for g, w in zip(got, want):
+        assert np.all(np.isfinite(g))
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("S,L,case", [(97, 32, "realistic"), (130, 64, "extreme"),
+                                      (64, 16, "denominator")])
+def test_states_twin_matches_pallas_save_states(S, L, case):
+    q, k, v, ig, fg = _inputs(S + 4, B=2, NH=3, S=S, case=case)
+    jin = tuple(map(jnp.asarray, (q, k, v, ig, fg)))
+    out, cent, nent = _pallas_forward(*jin, L, 1e-6, True, save_states=True)
+    m_ent = _m_entry_chain(*_prep(*jin, L)[4:6])
+    h, c, n, m = mlstm_forward_states_reference(
+        *prepare(*map(torch.from_numpy, (q, k, v, ig, fg)), L))
+    np.testing.assert_allclose(h.reshape(2, 3, -1, 16)[:, :, :S].numpy(), np.asarray(out),
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(c.numpy(), np.asarray(cent), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(n.numpy(), np.asarray(nent)[:, :, 0], atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(m_ent), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("B,NH,S,DH,L,case,atol,rtol", [
+    (2, 3, 97, 16, 32, "realistic", 2e-4, 1e-3),      # padded, several chunks
+    (2, 3, 130, 16, 64, "realistic", 2e-4, 1e-3),
+    (1, 2, 64, 8, 16, "denominator", 3e-4, 2e-3),     # the e^{-m} branch
+])
+def test_backward_twin_matches_pallas_vjp(B, NH, S, DH, L, case, atol, rtol):
+    """The fused backward on CPU tensors (states twin, backward twin, gate
+    epilogue, unpad) against jax.vjp of the Pallas custom VJP."""
+    q, k, v, ig, fg = _inputs(S + 5, B=B, NH=NH, S=S, DH=DH, case=case)
+    cot = np.random.RandomState(S + 6).randn(B, NH, S, DH).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: mlstm_pallas(*a, L, 1e-6, True),
+                     *map(jnp.asarray, (q, k, v, ig, fg)))
+    want = vjp(jnp.asarray(cot))
+    got = mlstm_backward(*map(torch.from_numpy, (q, k, v, ig, fg, cot)), chunk_size=L)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and np.all(np.isfinite(g.numpy()))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=atol, rtol=rtol)

@@ -1,21 +1,26 @@
-"""xlstm_hved_torch — the PyTorch/CUDA port of the XLSTM-HVED inference path
-for one NVIDIA H100.
+"""xlstm_hved_torch — the PyTorch/CUDA port of XLSTM-HVED (the inference
+path and the adversarial train step) for one NVIDIA H100.
 
 It mirrors the layout of the JAX package `xlstm_hved_tpu` (the reference it
 is held against) but imports nothing from it. Volumes are NCDHW
 (B, C, D, H, W); expert stacks are (B, 5, C, D, H, W) with the prior at
-expert 0. The bottleneck mLSTM runs through a hand-written CUDA kernel
-(`csrc/mlstm_fwd.cu`, bound in `ops/mlstm_cuda.py`) when its tensors are on
-the card, and through the plain PyTorch scan (`ops/mlstm.py`) when the
-caller asked for the CPU.
+expert 0. The bottleneck mLSTM runs through hand-written CUDA kernels
+(`csrc/mlstm_fwd.cu` for the forward and the states-saving forward,
+`csrc/mlstm_bwd.cu` for the backward, bound in `ops/mlstm_cuda.py`) when its
+tensors are on the card, and through the plain PyTorch scan and its
+autograd (`ops/mlstm.py`) when the caller asked for the CPU.
 
 Subpackages
 -----------
-- ops:     PoE/reparametrize, the plain mLSTM, the CUDA mLSTM forward wrapper
-- nn:      conv blocks, ViL stack, skip-return gate, DuSE
-- models:  HVEDFusionNet and the model-zoo factory
-- engine:  sliding-window inference and the 15-subset sweep
-- utils:   subset table, JAX-tree weight conversion, CUDA build helper
+- ops:     PoE/reparametrize and the KL terms, the plain mLSTM, the CUDA
+           mLSTM wrappers and their autograd Function
+- nn:      conv blocks, flax-style BatchNorm, ViL stack, skip-return gate,
+           DuSE, the discriminator block, the init schemes
+- models:  HVEDFusionNet, the Discriminator and the model-zoo factory
+- losses, metrics: the training objective's terms, dice and PSNR
+- engine:  the adversarial train step, the eval step, sliding-window
+           inference and the 15-subset sweep
+- utils:   subset table and samplers, JAX-tree weight conversion, CUDA build
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,13 @@
-"""Configuration tree and model-zoo presets.
+"""Configuration tree, model-zoo presets and training hyperparameters.
 
 The port's own copy of `xlstm_hved_tpu/config.py` (the port imports nothing
-from the JAX package): the same `HVEDConfig` flags, the same zoo and the
-same aliases, so a name resolves to the same architecture in both packages.
+from the JAX package): the same `HVEDConfig` flags, the same zoo, the same
+aliases and the same `TrainConfig`, so a name resolves to the same
+architecture and the same training set-up in both packages.
 Two compute-policy fields differ: the port runs fp32 only, and
-`mlstm_kernel` picks the CUDA mLSTM forward where the JAX config picked its
-Pallas kernel. The JAX `remat` flag is a training option and waits for the
-training slice; `num_groups` (GroupNorm orders, which no preset uses) is
+`mlstm_kernel` picks the CUDA mLSTM kernels where the JAX config picked its
+Pallas kernels. The JAX `remat` flag (stage rematerialisation in training)
+is not ported yet; `num_groups` (GroupNorm orders, which no preset uses) is
 left out.
 """
 from __future__ import annotations
@@ -52,9 +53,9 @@ class HVEDConfig:
     # compute policy
     compute_dtype: str = "float32"      # the port runs fp32 only
     vil_chunk_size: int = 128
-    # None = auto: the CUDA mLSTM forward kernel when the tensors are on
-    # the card, the plain chunkwise scan when they are on the CPU. False
-    # asks for the plain scan on the card too (a comparison baseline).
+    # None = auto: the CUDA mLSTM kernels when the tensors are on the card,
+    # the plain chunkwise scan when they are on the CPU. False asks for the
+    # plain scan on the card too (a comparison baseline).
     mlstm_kernel: Optional[bool] = None
 
     # ---- derived ----
@@ -156,3 +157,26 @@ def get_config(name: str, **overrides) -> HVEDConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the JAX package's defaults)."""
+
+    num_epochs: int = 3000
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-5
+    weight_adv: float = 0.1     # alpha
+    weight_vae: float = 0.2     # beta
+    use_sdm: bool = False       # add the boundary loss <seg, SDM(gt)>
+    weight_bd: float = 0.5      # boundary-loss weight
+    poly_power: float = 0.9
+    crop_size: Tuple[int, int, int] = (128, 192, 128)
+    train_batch: int = 1
+    valid_batch: int = 1
+    seed: int = 1
+    validate_every: int = 1
+    backup_interval: int = 5
+    disc_f_maps: int = 64
+    disc_kernel: int = 4
+    steps_per_epoch: Optional[int] = None

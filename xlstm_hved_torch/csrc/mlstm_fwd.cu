@@ -1,8 +1,13 @@
 // Chunkwise mLSTM forward for Hopper (sm_90a), fp32 on the CUDA cores.
 //
-// Replaces the Pallas TPU kernel xlstm_hved_tpu/ops/mlstm_pallas.py::
-// _mlstm_kernel (driven by _pallas_forward). It computes what that kernel
-// computes; the exact fp32 gate transforms (pad, a = per-chunk cumsum of
+// Replaces the Pallas TPU kernels xlstm_hved_tpu/ops/mlstm_pallas.py::
+// _mlstm_kernel and _mlstm_states_kernel (both driven by _pallas_forward).
+// mlstm_fwd computes the readout h; mlstm_fwd_states (the same body with
+// kSave) also stores each chunk's entry state (C*, n*, m*) for the backward
+// kernel (mlstm_bwd.cu), before the chunk updates it. m* is stored as the
+// kernel carries it, a_{L-1} + max(m*, max s): the same fp32 operations as
+// the JAX _m_entry_chain, so the backward needs no separate chain. The
+// exact fp32 gate transforms (pad, a = per-chunk cumsum of
 // logsigmoid(f), s = i - a, cm = chunk-local cummax of s) stay as torch ops
 // in ops/mlstm_cuda.py, as they stayed XLA ops around the Pallas call.
 //
@@ -42,12 +47,14 @@ namespace {
 constexpr int kMaxChunk = 128;
 constexpr int kThreads = 256;  // two threads per readout row
 
-template <int DH>
+template <int DH, bool kSave>
 __global__ void __launch_bounds__(kThreads)
 mlstm_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ a,
                  const float* __restrict__ s, const float* __restrict__ cm,
-                 float* __restrict__ out, int seq_len, int chunk, float eps) {
+                 float* __restrict__ out, float* __restrict__ cent,
+                 float* __restrict__ nent, float* __restrict__ ment,
+                 int seq_len, int chunk, float eps) {
   __shared__ float q_s[kMaxChunk][DH + 1];  // +1: rows are read per thread
   __shared__ float k_s[kMaxChunk][DH];
   __shared__ float v_s[kMaxChunk][DH];
@@ -85,6 +92,12 @@ mlstm_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cm_s[e] = cm[goff + e];
     }
     __syncthreads();
+    if (kSave) {  // the state this chunk starts from (read-only until the update)
+      const size_t sidx = static_cast<size_t>(blockIdx.x) * nchunks + c;
+      for (int e = tid; e < DH * DH; e += kThreads) cent[sidx * DH * DH + e] = c_s[e / DH][e % DH];
+      for (int e = tid; e < DH; e += kThreads) nent[sidx * DH + e] = n_s[e];
+      if (tid == 0) ment[sidx] = m_state;
+    }
 
     // ---- readout: every thread runs this code so that the pair shuffle
     // below sees a full warp; rows past the chunk sum nothing and store
@@ -161,13 +174,11 @@ mlstm_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace
 
-// q, k, v, out: (bh, seq_len, dh) fp32, contiguous; a, s, cm: (bh, seq_len)
-// fp32, contiguous, seq_len a multiple of chunk. Launches on `stream` of
-// `device` and returns the cudaError_t of the launch (0 on success).
-extern "C" int mlstm_fwd_launch(const float* q, const float* k, const float* v,
-                                const float* a, const float* s, const float* cm,
-                                float* out, int bh, int seq_len, int chunk,
-                                int dh, float eps, int device, void* stream) {
+template <bool kSave>
+static int launch(const float* q, const float* k, const float* v, const float* a,
+                  const float* s, const float* cm, float* out, float* cent,
+                  float* nent, float* ment, int bh, int seq_len, int chunk, int dh,
+                  float eps, int device, void* stream) {
   if (bh <= 0 || chunk <= 0 || chunk > kMaxChunk || seq_len % chunk != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -176,17 +187,40 @@ extern "C" int mlstm_fwd_launch(const float* q, const float* k, const float* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 8:
-      mlstm_fwd_kernel<8><<<bh, kThreads, 0, st>>>(q, k, v, a, s, cm, out,
-                                                   seq_len, chunk, eps);
+      mlstm_fwd_kernel<8, kSave><<<bh, kThreads, 0, st>>>(
+          q, k, v, a, s, cm, out, cent, nent, ment, seq_len, chunk, eps);
       break;
     case 16:
-      mlstm_fwd_kernel<16><<<bh, kThreads, 0, st>>>(q, k, v, a, s, cm, out,
-                                                    seq_len, chunk, eps);
+      mlstm_fwd_kernel<16, kSave><<<bh, kThreads, 0, st>>>(
+          q, k, v, a, s, cm, out, cent, nent, ment, seq_len, chunk, eps);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// q, k, v, out: (bh, seq_len, dh) fp32, contiguous; a, s, cm: (bh, seq_len)
+// fp32, contiguous, seq_len a multiple of chunk. Launches on `stream` of
+// `device` and returns the cudaError_t of the launch (0 on success).
+extern "C" int mlstm_fwd_launch(const float* q, const float* k, const float* v,
+                                const float* a, const float* s, const float* cm,
+                                float* out, int bh, int seq_len, int chunk,
+                                int dh, float eps, int device, void* stream) {
+  return launch<false>(q, k, v, a, s, cm, out, nullptr, nullptr, nullptr, bh,
+                       seq_len, chunk, dh, eps, device, stream);
+}
+
+// As mlstm_fwd_launch, and also the entry state of every chunk:
+// cent (bh, seq_len / chunk, dh, dh), nent (bh, seq_len / chunk, dh) and
+// ment (bh, seq_len / chunk), fp32, contiguous.
+extern "C" int mlstm_fwd_states_launch(const float* q, const float* k, const float* v,
+                                       const float* a, const float* s, const float* cm,
+                                       float* out, float* cent, float* nent, float* ment,
+                                       int bh, int seq_len, int chunk, int dh, float eps,
+                                       int device, void* stream) {
+  return launch<true>(q, k, v, a, s, cm, out, cent, nent, ment, bh, seq_len, chunk,
+                      dh, eps, device, stream);
 }
 
 extern "C" const char* mlstm_fwd_error_string(int code) {

@@ -1,0 +1,95 @@
+"""Loss functions (counterpart of `xlstm_hved_tpu/losses/__init__.py`).
+
+All losses take probabilities (post-sigmoid/softmax) and reduce to fp32
+scalars, with the JAX package's epsilons. Tensors are NCDHW (B, C, D, H, W):
+the channel axis is 1 where the JAX functions use the last axis.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from xlstm_hved_torch.ops.poe import compute_kld_drop, compute_kld_subsets, kl_divergence
+
+__all__ = [
+    "dice_loss",
+    "generalized_dice_loss",
+    "per_channel_dice",
+    "gan_loss_lsgan",
+    "boundary_loss",
+    "weighted_cross_entropy_loss",
+    "bce_loss",
+    "l2_loss",
+    "kl_divergence",
+    "compute_kld_subsets",
+    "compute_kld_drop",
+]
+
+
+def _flatten_per_channel(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, ...) -> (C, B * spatial), fp32."""
+    return x.float().transpose(0, 1).reshape(x.shape[1], -1)
+
+
+def per_channel_dice(pred: torch.Tensor, target: torch.Tensor,
+                     epsilon: float = 1e-6) -> torch.Tensor:
+    """Soft dice per channel with the V-Net (x^2 + y^2) denominator."""
+    p, t = _flatten_per_channel(pred), _flatten_per_channel(target)
+    intersect = (p * t).sum(-1)
+    denom = (p * p).sum(-1) + (t * t).sum(-1)
+    return 2.0 * intersect / torch.clamp(denom, min=epsilon)
+
+
+def dice_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """1 - mean per-channel soft dice."""
+    return 1.0 - per_channel_dice(pred, target).mean()
+
+
+def generalized_dice_loss(pred: torch.Tensor, target: torch.Tensor,
+                          epsilon: float = 1e-6) -> torch.Tensor:
+    """Inverse-volume-weighted generalised dice loss."""
+    p, t = _flatten_per_channel(pred), _flatten_per_channel(target)
+    if p.shape[0] == 1:
+        p, t = torch.cat([p, 1.0 - p]), torch.cat([t, 1.0 - t])
+    w = t.sum(-1)
+    w = 1.0 / torch.clamp(w * w, min=epsilon)
+    w = torch.where(torch.isfinite(w), w, torch.zeros_like(w))
+    intersect = (p * t).sum(-1) * w
+    denom = torch.clamp((p + t).sum(-1) * w, min=epsilon)
+    return 1.0 - 2.0 * intersect.sum() / denom.sum()
+
+
+def gan_loss_lsgan(pred: torch.Tensor, target_is_real: bool) -> torch.Tensor:
+    """LSGAN: mean squared distance to the constant 1 (real) or 0 (fake)."""
+    return torch.mean((pred.float() - (1.0 if target_is_real else 0.0)).square())
+
+
+def boundary_loss(probs: torch.Tensor, gt_sdf: torch.Tensor) -> torch.Tensor:
+    """Mean of probabilities times the ground truth's signed distance map."""
+    return torch.mean(probs.float() * gt_sdf.float())
+
+
+def bce_loss(pred: torch.Tensor, target: torch.Tensor,
+             epsilon: float = 1e-7) -> torch.Tensor:
+    """Sum over channels of the per-channel BCE on probabilities."""
+    p = torch.clamp(pred.float(), epsilon, 1.0 - epsilon)
+    t = target.float()
+    dims = (0,) + tuple(range(2, pred.ndim))
+    per_ch = -torch.mean(t * torch.log(p) + (1 - t) * torch.log1p(-p), dim=dims)
+    return per_ch.sum()
+
+
+def weighted_cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Cross entropy with inverse-frequency class weights, held constant,
+    normalised as `F.cross_entropy(weight=w)` is: sum(w_y nll) / sum(w_y).
+    `target` is one-hot over the channel axis."""
+    flat = _flatten_per_channel(logits)
+    weights = ((1.0 - flat).sum(-1) / flat.sum(-1)).detach()
+    labels = target.argmax(dim=1)
+    nll = -torch.gather(F.log_softmax(logits.float(), dim=1), 1, labels[:, None])[:, 0]
+    w = weights[labels]
+    return (w * nll).sum() / w.sum()
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred.float() - target.float()).square())

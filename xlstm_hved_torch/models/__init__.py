@@ -1,10 +1,10 @@
-"""Model-zoo factory for the ported HVED presets."""
+"""Model-zoo factory for the ported HVED presets, and the discriminator."""
 from __future__ import annotations
 
 import torch
 
 from xlstm_hved_torch.config import HVEDConfig, get_config
-from xlstm_hved_torch.models.hved import HVEDFusionNet, HVEDOutput
+from xlstm_hved_torch.models.hved import Discriminator, HVEDFusionNet, HVEDOutput
 
 
 def resolve_device(device) -> torch.device:
@@ -28,6 +28,7 @@ def find_model_using_name(name: str, *, device="cuda", seed: int = 0,
 
 
 __all__ = [
+    "Discriminator",
     "HVEDConfig",
     "HVEDFusionNet",
     "HVEDOutput",

@@ -10,9 +10,10 @@ skip-return chain gates each stream's encoder input, a ViL block mixes the
 bottleneck tokens, and the seg and recon decoders are coupled by DuSE.
 
 Ported: the MVAE presets with the double-conv basic module (XLSTM_HVED and
-its ablations, the U_HVEDConv* family without the ViL decoder). The fusion
-and plain multi-stream arms, the ext-resnet and ViL decoder blocks, the
-prefix/suffix split of the hoisted sweep and the discriminator come later.
+its ablations, the U_HVEDConv* family without the ViL decoder), and the
+PatchGAN `Discriminator` of the adversarial train step. The fusion and plain
+multi-stream arms, the ext-resnet and ViL decoder blocks and the
+prefix/suffix split of the hoisted sweep come later.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from xlstm_hved_torch.nn.blocks import (BasicConv, BlockDiagEncoderStage,
                                         EncoderStage, block_diag_conv, conv3d,
                                         resize_trilinear)
 from xlstm_hved_torch.nn.dusfe import DuSEAttention
+from xlstm_hved_torch.nn.gates import DISC_PADDING, DiscriminatorBlock
 from xlstm_hved_torch.nn.skr import SkrGate
 from xlstm_hved_torch.nn.vil import ViLLayer3D
 from xlstm_hved_torch.ops.poe import product_of_experts, reparametrize, stack_prior
@@ -193,3 +195,42 @@ class HVEDFusionNet(nn.Module):
         if recon:
             recon_out = self.rfinal_0(rx)
         return HVEDOutput(seg_out, tuple(mu_list), tuple(logvar_list), recon_out)
+
+
+class Discriminator(nn.Module):
+    """PatchGAN-style 3D conv discriminator on concat(seg, attention-weighted
+    recon) (counterpart of `xlstm_hved_tpu/models/hved.py::Discriminator`):
+    `num_levels` DiscriminatorBlocks of f_maps * 2^i channels with the given
+    strides, InstanceNorm from the second on, then a bias-free k^3 conv to
+    one channel. x: (B, in_channels, D, H, W)."""
+
+    def __init__(self, in_channels: int = 7, f_maps: int = 64, kernel: int = 4,
+                 num_levels: int = 4, strides: Tuple[int, ...] = (1, 2, 2, 2)):
+        super().__init__()
+        self.kernel, self.num_levels = kernel, num_levels
+        feats = [f_maps * 2 ** i for i in range(num_levels)]
+        cin = in_channels
+        for i, f in enumerate(feats):
+            self.add_module(f"block{i}", DiscriminatorBlock(
+                cin, f, kernel=kernel, stride=strides[i], normalize=i > 0))
+            cin = f
+        self.last = nn.Conv3d(cin, 1, kernel, padding=DISC_PADDING, bias=False)
+
+    def check_input(self, spatial):
+        """Raise ValueError when a (D, H, W) input leaves the final conv no
+        support after the blocks' downsampling."""
+        for i in range(self.num_levels):
+            conv = getattr(self, f"block{i}").Conv_0
+            spatial = [(n + 2 * DISC_PADDING - self.kernel) // conv.stride[0] + 1
+                       for n in spatial]
+        if min(spatial) + 2 * DISC_PADDING < self.kernel:
+            raise ValueError(
+                f"Discriminator input too small: spatial {tuple(spatial)} after "
+                f"downsampling leaves no support for the final k={self.kernel} "
+                "conv; use a larger crop or kernel=3")
+
+    def forward(self, x):
+        self.check_input(x.shape[2:])
+        for i in range(self.num_levels):
+            x = getattr(self, f"block{i}")(x)
+        return self.last(x)

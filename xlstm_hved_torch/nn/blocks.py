@@ -28,6 +28,38 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+class BatchNorm3d(nn.BatchNorm3d):
+    """BatchNorm with the flax `nn.BatchNorm` defaults the JAX package uses.
+
+    Training mode: the batch mean and the fast variance E[x^2] - E[x]^2
+    (floored at 0), both fp32, normalise the batch with gradients through
+    them; the running statistics move as flax moves them, by momentum 0.99
+    (torch momentum 0.01) towards the batch mean and the BIASED batch
+    variance (torch's own F.batch_norm folds in the unbiased one, n/(n-1)
+    larger, visible at small spatial sizes). Eval mode is torch's, on the
+    running statistics.
+    """
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features, eps=eps, momentum=0.01)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = (0,) + tuple(range(2, x.ndim))
+        x32 = x.float()
+        mean = x32.mean(dim=dims)
+        var = torch.clamp(x32.square().mean(dim=dims) - mean.square(), min=0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(self.momentum * mean)
+            self.running_var.mul_(keep).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        y = (x32 - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=1e-2)
 

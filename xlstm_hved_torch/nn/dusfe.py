@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from xlstm_hved_torch.nn.blocks import conv3d
+from xlstm_hved_torch.nn.blocks import BatchNorm3d, conv3d
 
 
 class DuSEAttention(nn.Module):
@@ -28,8 +28,8 @@ class DuSEAttention(nn.Module):
         self.conv_comb = conv3d(2, 1, 1)
         self.conv_adjust_ch1 = conv3d(1, 1, 3)
         self.conv_adjust_ch2 = conv3d(1, 1, 3)
-        self.bn_fuse_ch1 = nn.BatchNorm3d(c, eps=1e-5)
-        self.bn_fuse_ch2 = nn.BatchNorm3d(c, eps=1e-5)
+        self.bn_fuse_ch1 = BatchNorm3d(c)
+        self.bn_fuse_ch2 = BatchNorm3d(c)
 
     def forward(self, x1, x2):
         dims = (2, 3, 4)

@@ -1,9 +1,10 @@
 """Skip-return gate blocks in NCDHW (counterpart of the skip-return subset of
 `xlstm_hved_tpu/nn/skr.py`).
 
-BatchNorm runs with running statistics in eval mode (eps 1e-5), loaded from
-the flax `batch_stats` by `utils/convert.py`. Training-mode statistics wait
-for the training slice (flax and torch update running stats differently).
+BatchNorm (`nn.blocks.BatchNorm3d`, eps 1e-5) follows the module's mode:
+running statistics in eval mode, loaded from the flax `batch_stats` by
+`utils/convert.py`; batch statistics with flax's running-stat update in
+training mode.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xlstm_hved_torch.nn.blocks import channel_pool, conv3d, instance_norm
+from xlstm_hved_torch.nn.blocks import BatchNorm3d, channel_pool, conv3d, instance_norm
 
 
 class PReLU(nn.Module):
@@ -35,7 +36,7 @@ class _ConvNormAct(nn.Module):
             raise NotImplementedError(f"norm {norm!r} is not ported yet")
         self.norm, self.activation, self.leaky = norm, activation, leaky
         if norm == "BATCH":
-            self.BatchNorm_0 = nn.BatchNorm3d(features, eps=1e-5)
+            self.BatchNorm_0 = BatchNorm3d(features)
         if activation and leaky:
             self.act = PReLU()
 

@@ -100,9 +100,11 @@ class MultiHeadLayerNorm(nn.Module):
 class MatrixLSTMCell(nn.Module):
     """q, k, v -> mLSTM -> per-head out-norm.
 
-    `mlstm_kernel`: None runs the CUDA forward kernel on CUDA tensors and the
-    plain chunkwise scan on CPU tensors; False runs the plain scan anywhere;
-    True always asks for the kernel (which raises on CPU tensors).
+    `mlstm_kernel`: None runs the CUDA kernels on CUDA tensors (the forward
+    kernel, and the states and backward kernels for the gradient) and the
+    plain chunkwise scan, differentiated by autograd, on CPU tensors; False
+    runs the plain scan anywhere; True always asks for the kernels (which
+    raise on CPU tensors).
     """
 
     def __init__(self, dim: int, num_heads: int, chunk_size: int = 128,

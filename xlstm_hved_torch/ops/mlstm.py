@@ -8,8 +8,9 @@ the chunk decomposition).
     C(t, j) = exp(logw(t, j) - m_t) * (q_t . k_j) / sqrt(DH)
     h_t   = sum_j C(t, j) v_j / (max(|sum_j C(t, j)|, exp(-m_t)) + eps)
 
-The chunkwise scan is what the model runs on the CPU and what the CUDA
-forward kernel (`ops/mlstm_cuda.py`) is held against. Three details are
+The chunkwise scan is what the model runs on the CPU (its gradient is
+autograd through the scan, the JAX package's bwd_mode="scan" oracle) and
+what the CUDA kernels (`ops/mlstm_cuda.py`) are held against. Three details are
 load-bearing and kept from the reference:
 - the causal mask is applied in log space, before the exp, so masked
   entries never overflow to +inf (a finite forward with a NaN backward);

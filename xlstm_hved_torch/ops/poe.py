@@ -5,7 +5,7 @@ Expert stacks are (B, E, C, D, H, W): axis 1 indexes the experts, with the
 standard-normal prior at expert 0 and the modalities at 1..4. The subset is
 a boolean keep-mask over the modality experts; multiplying by the constant
 0/1 mask removes a dropped expert from both sums and from the gradient.
-The KL terms belong to training and come with that slice.
+The KL terms of the training objective close the module.
 """
 from __future__ import annotations
 
@@ -74,3 +74,33 @@ def reparametrize(mu: torch.Tensor, logvar: torch.Tensor,
     eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
                       device=mu.device)
     return mu + eps * torch.exp(0.5 * logvar)
+
+
+def kl_divergence(mu1: torch.Tensor, logvar1: torch.Tensor,
+                  mu2: Optional[torch.Tensor] = None,
+                  logvar2: Optional[torch.Tensor] = None,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """Mean over all elements of KL(N(mu1, var1) || N(mu2, var2)); the
+    standard normal when mu2 is None."""
+    if mu2 is None:
+        return 0.5 * torch.mean(-1.0 - logvar1 + torch.exp(logvar1) + mu1.square())
+    var1, var2 = torch.exp(logvar1), torch.exp(logvar2)
+    return 0.5 * torch.mean(-1.0 + logvar2 - logvar1
+                            + (var1 + (mu1 - mu2).square()) / (var2 + eps))
+
+
+def compute_kld_subsets(mu: torch.Tensor, logvar: torch.Tensor,
+                        subset_keeps: torch.Tensor) -> torch.Tensor:
+    """Mean over subsets of KL(PoE(subset) || N(0, 1)) for one level.
+    mu, logvar: (B, 5, C, D, H, W) expert stacks (prior at 0);
+    subset_keeps: (S, 4) bool keep-masks, one subset per row."""
+    klds = [kl_divergence(*product_of_experts(mu, logvar, keep))
+            for keep in torch.as_tensor(subset_keeps).bool()]
+    return torch.stack(klds).mean()
+
+
+def compute_kld_drop(mu: torch.Tensor, logvar: torch.Tensor,
+                     drop: torch.Tensor) -> torch.Tensor:
+    """Instance-missing KL: the PoE over each instance's kept modalities
+    against the prior. drop: (B, 4) bool, True = missing."""
+    return kl_divergence(*product_of_experts(mu, logvar, ~torch.as_tensor(drop).bool()))

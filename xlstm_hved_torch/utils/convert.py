@@ -1,7 +1,9 @@
 """Carry the JAX package's weights into the port.
 
 The port names its submodules after the flax scopes, so a flax leaf
-`a/b/kernel` becomes the torch key `a.b.weight` and only its layout changes:
+`a/b/kernel` becomes the torch key `a.b.weight` and only its layout changes
+(the HVED network's tree, and the Discriminator's `block{i}/Conv_0/kernel|bias`
+and `last/kernel` alike):
 
 - 3D conv kernel (k, k, k, Cin, Cout)           -> (Cout, Cin, k, k, k)
 - block-diagonal conv kernel (M, k, k, k, cin, cout) -> (M*cout, cin, k, k, k),
