@@ -8,12 +8,17 @@ no phase catches its own failure and nothing falls back to the CPU or to a
 plain twin):
  1. device   the card's name and power limit from nvidia-smi; TF32 off
  2. build    every CUDA source of the port (mlstm_fwd.cu with its states
-             variant, mlstm_bwd.cu), one nvcc each, all started together
- 3. kernel   each kernel (mlstm_fwd, mlstm_fwd_states, mlstm_bwd) against its
-             plain PyTorch twin at the shapes the main paths give it and on
-             the edge cases, with its time beside the twin's and its bound;
-             then the differentiable wrapper's five gradients against
-             autograd through the plain scan at S 2000 and 6144
+             variant, mlstm_bwd.cu), one nvcc each, all started together;
+             ptxas's registers, shared memory and spills for each CUDA kernel
+ 3. kernel   each kernel (mlstm_fwd, mlstm_fwd_states, mlstm_bwd; one call of
+             each is three CUDA launches) against its plain PyTorch twin at
+             the shapes the main paths give it and on the edge cases (one
+             chunk, padding, extreme gates, the e^{-m} branch, DH 8, more
+             blocks than one wave), with its time beside the twin's and its
+             bound; mlstm_fwd's h bitwise equal to mlstm_fwd_states'; then the
+             differentiable wrapper's h and five gradients against the plain
+             chunkwise scan and its autograd at S 2000 and 6144 (the twins
+             follow the kernels' phases; the scan is independent of them)
  4. forward  the flagship XLSTM_HVED seg+recon forward at full width (f_maps 4,
              4 levels, fp32, seeded random weights) at 128^3 and 128x192x128:
              finite, seg in [0, 1], one mLSTM kernel launch per forward, and
@@ -39,7 +44,9 @@ Bounds:
   (fp32 sums taken in another order; the normaliser lets |h| reach tens: on
   an H100 80GB HBM3 at 700 W the forward measured 1.2e-6 to 2.9e-6 scaled
   and up to 9.9e-5 absolute); the entry offsets m* are bitwise equal (the
-  same fp32 operations).
+  same fp32 operations), and so are the h of the two kernels (the same
+  launches). The wrapper's h against the plain chunkwise scan: the same
+  two bounds on h.
 - mlstm_bwd against its twin: max|d| / max|ref| <= 1e-4 for each of dq, dk,
   dv, ds and dax (the adjoint sums run over up to 48 chunks in another
   order than the twin's batched products).
@@ -71,15 +78,20 @@ Bounds:
 
 Timing: CUDA events, median over repeats after warm-up; a train step is
 the host clock around a step that ends in torch.cuda.synchronize(). A
-kernel's bound is the larger of its bytes (inputs read once, outputs
-written once) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s (H100
-SXM data sheet).
+kernel's time ("ms") is one call with the host in it (the wrapper's Python
+checks, allocations and ctypes call, then its launches), what a caller
+pays; beside it, "device_ms" is the device time of one call: 20 calls
+enqueued behind a device-side wait, so that the host's enqueueing is
+hidden, over 20. A kernel's bound is the larger of its bytes (inputs read
+once, outputs written once) over 3.35 TB/s and its fp32 operations over
+67 TFLOP/s (H100 SXM data sheet).
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -96,6 +108,7 @@ GRAD_SCALED, GRAD_FLOOR = 5e-3, 3e-4
 CROPS = ((128, 128, 128), (128, 192, 128))
 SOURCE_ROOT = "xlstm_hved_torch/csrc"
 REPLACES = "xlstm_hved_tpu/ops/mlstm_pallas.py"
+SLEEP_CYCLES = 50_000_000  # the device-side wait of device_ms, about 25 ms
 
 
 def fail(msg: str):
@@ -124,6 +137,49 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 20, repeats: int = 5) -> float:
+    """Median device time of one fn() in ms: `calls` calls enqueued behind a
+    device-side wait (so the device runs them back to back, without waiting
+    on the host), timed by CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        wait, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t_host = time.perf_counter()
+        wait.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t_host)
+        end.synchronize()
+        if host_ms >= wait.elapsed_time(start):
+            fail(f"device_ms: enqueueing took {host_ms:.2f} ms, longer than the device-side "
+                 f"wait of {wait.elapsed_time(start):.2f} ms")
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def ptxas_report(log: str):
+    """One line per CUDA kernel from nvcc's -Xptxas -v log: its short name,
+    registers, shared memory, stack frame and spills."""
+    lines, name, frame = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(mlstm_[a-z_]+?_kernel)ILi(\d+)E", line)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else line.split("'")[1]
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {frame}")
+            name, frame = None, ""
+    return lines
 
 
 def mlstm_cost(BH: int, Sp: int, DH: int, L: int, states: bool = False):
@@ -194,7 +250,9 @@ KERNEL_CASES = (("S4096", 1, 4, 4096, 16, "realistic"),
                 ("S4000_padded", 1, 4, 4000, 16, "realistic"),
                 ("S4096_extreme_gates", 1, 4, 4096, 16, "extreme"),
                 ("S4096_denominator", 1, 4, 4096, 16, "denominator"),
-                ("S1000_DH8", 2, 4, 1000, 8, "realistic"))
+                ("S1000_DH8", 2, 4, 1000, 8, "realistic"),
+                ("S100_one_chunk", 1, 4, 100, 16, "realistic"),      # L = S = 100
+                ("B2_S6144", 2, 4, 6144, 16, "realistic"))          # 384 blocks, > 1 wave
 # kernel -> (source file, line of the Pallas kernel body it replaces)
 KERNELS = {"mlstm_fwd": ("mlstm_fwd.cu", 40),
            "mlstm_fwd_states": ("mlstm_fwd.cu", 107),
@@ -234,6 +292,9 @@ def check_kernels(dev):
             # the user-facing wrapper (prep + launch + unpad) on the raw inputs
             full = mc.mlstm_forward(q, k, v, ig, fg, chunk_size=128)
             states = mc.run_states_kernel(*prepared)
+            if not torch.equal(out, states[0]):
+                fail(f"{label}: mlstm_fwd's h differs from mlstm_fwd_states' "
+                     f"(max|d| {absmax(out - states[0]):.3e})")
             bwd_args = (qf, kf, vf, g, a, s, cm, *ref_states[1:])
             grads = mc.run_bwd_kernel(*bwd_args)
             ref_grads = mc.mlstm_backward_reference(*bwd_args)
@@ -256,9 +317,11 @@ def check_kernels(dev):
             if not (finite(*grads) and max(b_errs) <= BWD_SCALED):
                 fail(f"mlstm_bwd {label}: scaled dq/dk/dv/ds/dax "
                      f"{['%.3e' % e for e in b_errs]} (bound {BWD_SCALED})")
-            ms = {"mlstm_fwd": cuda_ms(lambda: mc.run_kernel(*prepared)),
-                  "mlstm_fwd_states": cuda_ms(lambda: mc.run_states_kernel(*prepared)),
-                  "mlstm_bwd": cuda_ms(lambda: mc.run_bwd_kernel(*bwd_args))}
+            calls = {"mlstm_fwd": lambda: mc.run_kernel(*prepared),
+                     "mlstm_fwd_states": lambda: mc.run_states_kernel(*prepared),
+                     "mlstm_bwd": lambda: mc.run_bwd_kernel(*bwd_args)}
+            ms = {name: cuda_ms(fn) for name, fn in calls.items()}
+            dev_ms = {name: device_ms(fn) for name, fn in calls.items()}
             plain_ms = {
                 "mlstm_fwd": cuda_ms(lambda: mc.mlstm_forward_reference(*prepared), 2, 10),
                 "mlstm_fwd_states": cuda_ms(
@@ -274,23 +337,26 @@ def check_kernels(dev):
               f"dv {b_errs[2]:.3e} ds {b_errs[3]:.3e} dax {b_errs[4]:.3e}", flush=True)
         for name in KERNELS:
             bound, by = bound_ms(*costs[name])
-            print(f"    {name}: kernel {ms[name]:.4f} ms | twin {plain_ms[name]:.4f} ms | "
-                  f"bound {bound:.5f} ms by {by} ({costs[name][0]} B, {costs[name][1]} flop)",
+            print(f"    {name}: kernel {ms[name]:.4f} ms one call (device "
+                  f"{dev_ms[name]:.4f} ms) | twin {plain_ms[name]:.4f} ms | bound "
+                  f"{bound:.5f} ms by {by} ({costs[name][0]} B, {costs[name][1]} flop)",
                   flush=True)
             if label == "S4096":  # the shape the main paths give it (128^3 windows)
                 source, line = KERNELS[name]
                 rows[name] = {"name": name, "route": "cuda",
                               "source": f"{SOURCE_ROOT}/{source}",
                               "replaces": f"{REPLACES}:{line}",
-                              "ms": ms[name], "plain_ms": plain_ms[name],
+                              "ms": ms[name], "device_ms": dev_ms[name],
+                              "plain_ms": plain_ms[name],
                               "bound_ms": bound, "bound_by": by, "library_ms": None}
     return rows, worst
 
 
 def check_wrapper_gradients(dev):
-    """Phase 3, the differentiable wrapper: raw q, k, v, igate, fgate -> the
-    five gradients through the states and backward kernels, against
-    autograd through the plain chunkwise scan."""
+    """Phase 3, the differentiable wrapper: raw q, k, v, igate, fgate -> h
+    and the five gradients through the kernels, against the plain
+    chunkwise scan (the sequential walk over the chunks, not the twins'
+    decomposition) and its autograd."""
     import torch
     from xlstm_hved_torch.ops import mlstm_cuda as mc
     from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise
@@ -300,16 +366,24 @@ def check_wrapper_gradients(dev):
         inputs = mlstm_inputs(gen, dev, 1, 4, S, 16, "realistic")
         cot = torch.randn(1, 4, S, 16, generator=gen, device=dev)
         leaves = [t.clone().requires_grad_(True) for t in inputs]
-        got = torch.autograd.grad(mc.mlstm_forward(*leaves), leaves, cot)
+        out = mc.mlstm_forward(*leaves)
+        got = torch.autograd.grad(out, leaves, cot)
         leaves = [t.clone().requires_grad_(True) for t in inputs]
-        want = torch.autograd.grad(mlstm_chunkwise(*leaves), leaves, cot)
+        ref = mlstm_chunkwise(*leaves)
+        want = torch.autograd.grad(ref, leaves, cot)
         torch.cuda.synchronize()
+        out, ref = out.detach(), ref.detach()
+        h_err = absmax(out - ref)
+        h_scaled = h_err / absmax(ref)
+        if not (finite(out) and h_err <= KERNEL_ATOL and h_scaled <= KERNEL_SCALED):
+            fail(f"mlstm_forward h at S {S} vs the plain scan: max|d| {h_err:.3e}, scaled "
+                 f"{h_scaled:.3e} (bounds {KERNEL_ATOL}, {KERNEL_SCALED})")
         errs = [scaled_err(x, r) for x, r in zip(got, want)]
         if not (finite(*got) and max(errs) < FUNCTION_SCALED):
             fail(f"mlstm_forward gradients at S {S}: scaled dq/dk/dv/di/df "
                  f"{['%.3e' % e for e in errs]} (bound {FUNCTION_SCALED})")
-        print(f"  mlstm_forward gradients S{S} vs autograd through the plain scan: scaled "
-              f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} digate {errs[3]:.3e} "
+        print(f"  mlstm_forward S{S} vs the plain scan: h max|d| {h_err:.3e} scaled "
+              f"{h_scaled:.3e}; gradients vs its autograd: scaled dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} digate {errs[3]:.3e} "
               f"dfgate {errs[4]:.3e}", flush=True)
 
 
@@ -491,9 +565,8 @@ def main():
 
     report = cuda_build.build(mlstm_cuda.SOURCES)
     for name, rep in report.items():
-        for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_report(rep["log"]):
+            print(f"  {name}: {line}")
     done("build", t0, " ".join(f"{n} {r['seconds']:.1f}s" for n, r in report.items()))
 
     # ---- 3. kernels against their twins
@@ -501,7 +574,7 @@ def main():
     rows, worst = check_kernels(dev)
     check_wrapper_gradients(dev)
     done("kernel", t0, "mlstm_fwd, mlstm_fwd_states and mlstm_bwd agree with their twins "
-                       "on 6 cases; worst max|d| " +
+                       f"on {len(KERNEL_CASES)} cases; worst max|d| " +
                        " ".join(f"{n} {e:.3e}" for n, e in worst.items()))
 
     # ---- 4. flagship forward

@@ -15,7 +15,9 @@ window. Prints, after the card's name and power limit:
   reparametrisation, upsampling and adds in the model's own body);
 - from one torch.profiler window of N forwards: device busy time per
   forward (the sum of kernel times), the idle share of the forward's wall
-  time, and the kernels that take the most device time.
+  time, the kernels that take the most device time, and each CUDA kernel of
+  the mLSTM (one call of a wrapper is three of them) with its time per
+  launch and its launches per forward.
 The last line is one JSON object with the same numbers.
 
 With --train it builds the train step instead (G as above with the
@@ -25,8 +27,8 @@ two G forwards, D's forward inside the G loss, the rest of the loss, the G
 backward, the G optimizer step, the D step's two forwards, its backward and
 its optimizer step (medians over N steps; the phases replay the engine's own
 functions in the engine's order), beside the median of the engine's
-make_train_step and the profiler's busy time, idle share and top kernels
-over N engine steps.
+make_train_step and the profiler's busy time, idle share, top kernels and
+mLSTM kernels over N engine steps.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import argparse
 import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -45,6 +48,19 @@ GROUPS = (("encoders", "encoders_"), ("drb", "drb_"), ("vu", "vu_"),
           ("vil", "mvil"), ("seg_decoder", "sdecoder_"), ("recon_decoder", "rdecoder_"),
           ("duse", "dusfe_"), ("heads", "rfinal_"), ("heads", "sfinal_"),
           ("heads", "final_conv"), ("stem", "init_blocks"))
+
+
+def mlstm_kernels(kernels, iters):
+    """{name: (ms per launch, launches per call)} of the mLSTM's CUDA
+    kernels among the profiler's device events."""
+    found = ((re.search(r"mlstm_[a-z_]+_kernel<\d+>", e.key), e) for e in kernels)
+    return {m.group(0): (e.self_device_time_total / 1e3 / e.count, e.count // iters)
+            for m, e in found if m}
+
+
+def print_mlstm(launches, per: str):
+    for name, (ms, count) in sorted(launches.items()):
+        print(f"  {name:30s} {1e3 * ms:9.2f} us per launch  x{count} per {per}")
 
 
 def group_of(name: str) -> str:
@@ -135,6 +151,7 @@ def main():
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.iters
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    mlstm = mlstm_kernels(kernels, args.iters)
 
     print(f"forward {tuple(args.crop)}: {forward_ms:.3f} ms (median of {args.iters}); "
           f"with module hooks {hooked_ms:.3f} ms")
@@ -145,18 +162,21 @@ def main():
     for e in top:
         ms = e.self_device_time_total / 1e3 / args.iters
         print(f"  {ms:8.3f} ms  x{e.count // args.iters:<4d} {e.key[:110]}")
+    print("mLSTM kernels:")
+    print_mlstm(mlstm, "forward")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "plain_mlstm": args.plain_mlstm, "crop": list(args.crop), "forward_ms": forward_ms, "hooked_ms": hooked_ms,
         "groups_ms": dict(by_group), "busy_ms": busy_ms,
         "idle_share": 1 - busy_ms / forward_ms,
         "top_kernels_ms": {e.key[:110]: e.self_device_time_total / 1e3 / args.iters
-                           for e in top}}))
+                           for e in top},
+        "mlstm_kernels_ms_per_launch": {n: ms for n, (ms, _) in mlstm.items()}}))
 
 
 def profile_busy(fn, iters):
-    """(device busy ms per call, the top kernels' ms per call) from one
-    torch.profiler window of `iters` calls."""
+    """(device busy ms per call, the top kernels' ms per call, the mLSTM
+    kernels) from one torch.profiler window of `iters` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -168,7 +188,7 @@ def profile_busy(fn, iters):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     return busy_ms, [(e.key[:110], e.self_device_time_total / 1e3 / iters, e.count // iters)
-                     for e in top]
+                     for e in top], mlstm_kernels(kernels, iters)
 
 
 def train_breakdown(args, dev, smi):
@@ -270,7 +290,7 @@ def train_breakdown(args, dev, smi):
         times.append(start.elapsed_time(end))
     step_ms = statistics.median(times)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    busy_ms, top = profile_busy(engine_step, args.iters)
+    busy_ms, top, mlstm = profile_busy(engine_step, args.iters)
 
     path = "the plain mLSTM" if args.plain_mlstm else "the mLSTM kernels"
     print(f"train step {tuple(args.crop)} through {path}: {step_ms:.3f} ms (engine, median of {args.iters}), "
@@ -282,11 +302,14 @@ def train_breakdown(args, dev, smi):
           f"{1 - busy_ms / step_ms:.3f} of {step_ms:.3f} ms")
     for key, ms, count in top:
         print(f"  {ms:8.3f} ms  x{count:<4d} {key}")
+    print("mLSTM kernels:")
+    print_mlstm(mlstm, "step")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "mode": "train",
         "plain_mlstm": args.plain_mlstm, "crop": list(args.crop), "step_ms": step_ms, "peak_gib": peak_gib,
         "phases_ms": phases, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
-        "top_kernels_ms": {k: ms for k, ms, _ in top}}))
+        "top_kernels_ms": {k: ms for k, ms, _ in top},
+        "mlstm_kernels_ms_per_launch": {n: ms for n, (ms, _) in mlstm.items()}}))
 
 
 if __name__ == "__main__":

@@ -45,8 +45,10 @@ def _scaled_err(out, ref):
     return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
+# (1, 4, 100) is one chunk (L = S); (2, 4, 6144) is 384 blocks, more than one wave
 @pytest.mark.parametrize("B,NH,S,DH,L", [(1, 4, 4096, 16, 128), (1, 4, 6144, 16, 128),
-                                         (2, 4, 1000, 8, 128), (1, 2, 97, 16, 32)])
+                                         (2, 4, 1000, 8, 128), (1, 2, 97, 16, 32),
+                                         (1, 4, 100, 16, 128), (2, 4, 6144, 16, 128)])
 def test_kernel_matches_twin(dev, B, NH, S, DH, L):
     prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH), L)
     out = mlstm_cuda.run_kernel(*prepared)
@@ -55,6 +57,8 @@ def test_kernel_matches_twin(dev, B, NH, S, DH, L):
     assert torch.isfinite(out).all()
     err = float((out - ref).abs().max())
     assert err <= 5e-4 and err / float(ref.abs().max()) <= 2e-5  # as chip_smoke.py
+    # the states variant runs the same launches: the same h, bit for bit
+    assert torch.equal(out, mlstm_cuda.run_states_kernel(*prepared)[0])
 
 
 def test_mlstm_forward_matches_chunkwise_and_counts(dev):
@@ -72,7 +76,9 @@ def test_mlstm_forward_matches_chunkwise_and_counts(dev):
 @pytest.mark.parametrize("B,NH,S,DH,L,case", [(1, 4, 4096, 16, 128, "realistic"),
                                               (1, 4, 4000, 16, 128, "realistic"),
                                               (1, 2, 200, 8, 64, "denominator"),
-                                              (2, 2, 97, 16, 32, "realistic")])
+                                              (2, 2, 97, 16, 32, "realistic"),
+                                              (1, 4, 100, 16, 128, "realistic"),
+                                              (2, 4, 6144, 16, 128, "realistic")])
 def test_states_and_backward_kernels_match_twins(dev, B, NH, S, DH, L, case):
     prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH, case=case), L)
     states = mlstm_cuda.run_states_kernel(*prepared)

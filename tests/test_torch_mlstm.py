@@ -15,7 +15,8 @@ from xlstm_hved_torch.nn.vil import MatrixLSTMCell
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise, mlstm_quadratic
 from xlstm_hved_torch.ops.mlstm_cuda import (mlstm_backward, mlstm_forward,
                                              mlstm_forward_reference,
-                                             mlstm_forward_states_reference, prepare)
+                                             mlstm_forward_states_reference, prepare,
+                                             run_bwd_kernel, run_kernel, run_states_kernel)
 
 ATOL, RTOL = 2e-4, 1e-3
 
@@ -34,6 +35,13 @@ def _inputs(seed, B=1, NH=2, S=80, DH=16, case="realistic"):
     elif case == "denominator":    # tiny attention mass: the e^{-m} branch is live
         ig = (-8.0 + rng.randn(B, NH, S)).astype(np.float32)
         fg = (1.0 + rng.rand(B, NH, S)).astype(np.float32)
+    elif case == "padding_tail":   # the last 40 positions as padding: whole chunks of it
+        ig[..., -40:], fg[..., -40:] = -1e30, 1e30
+        k[..., -40:, :], v[..., -40:, :] = 0.0, 0.0
+    elif case == "underflow":      # igate +150 in the first 16 positions: the later
+        ig[..., :16] += 150.0      # chunks' e^{cm_{L-1} - M'} underflow to 0, so their
+        q, k[..., :16, :] = np.abs(q), np.abs(k[..., :16, :])  # rows read only that
+        # state; positive q and keys keep their q.n* (the rowsum) away from 0
     return q, k, v, ig, fg
 
 
@@ -73,7 +81,14 @@ def test_quadratic_matches_jax_chunkwise(S, case):
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("S,L,case", [c for c in CASES if c[0] <= 130])
+# cases that only the chunk-parallel phases (local states, carry scan,
+# per-chunk readout) can get wrong: one chunk (L = S), 63 chunks, whole
+# chunks of padding, e^{cm_{L-1} - M'} underflowing, the e^{-m} branch
+PHASE_CASES = [(50, 64, "realistic"), (1000, 16, "realistic"), (96, 16, "padding_tail"),
+               (64, 16, "underflow"), (64, 16, "denominator")]
+
+
+@pytest.mark.parametrize("S,L,case", [c for c in CASES if c[0] <= 130] + PHASE_CASES)
 def test_kernel_twin_matches_pallas_interpret(S, L, case):
     q, k, v, ig, fg = _inputs(S + 2, S=S, case=case)
     ref = np.asarray(mlstm_pallas(*map(jnp.asarray, (q, k, v, ig, fg)), L, 1e-6, True))
@@ -105,6 +120,24 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
         mlstm_forward(q8, k8, v8, ig, fg)
     with pytest.raises(ValueError, match="chunk_size"):
         mlstm_forward(q, k, v, ig, fg, chunk_size=256)
+
+
+def test_kernel_launchers_refuse_what_they_cannot_run():
+    prepared = prepare(*map(torch.from_numpy, _inputs(7, S=64)), 32)
+    qf, kf, vf, a, s, cm = prepared
+    _, cent, nent, ment = mlstm_forward_states_reference(*prepared)
+    counters = (run_kernel, run_states_kernel, run_bwd_kernel)
+    before = [fn.launches for fn in counters]
+    for run in (run_kernel, run_states_kernel):
+        with pytest.raises(ValueError, match="CUDA"):
+            run(*prepared)                                  # CPU tensors launch nothing
+    with pytest.raises(ValueError, match="CUDA"):
+        run_bwd_kernel(qf, kf, vf, qf, a, s, cm, cent, nent, ment)
+    with pytest.raises(ValueError, match="unsupported prepared shapes"):
+        run_kernel(qf[:, :48].contiguous(), kf, vf, a, s, cm)   # Sp is not the chunks' span
+    with pytest.raises(ValueError, match="3-D"):
+        run_bwd_kernel(qf[None], kf, vf, qf, a, s, cm, cent, nent, ment)
+    assert [fn.launches for fn in counters] == before
 
 
 def test_matrix_lstm_cell_dispatch_on_cpu():
@@ -148,26 +181,47 @@ def test_chunkwise_autograd_matches_jax_grad(S, L, case):
         np.testing.assert_allclose(g, w, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("S,L,case", [(97, 32, "realistic"), (130, 64, "extreme"),
-                                      (64, 16, "denominator")])
-def test_states_twin_matches_pallas_save_states(S, L, case):
-    q, k, v, ig, fg = _inputs(S + 4, B=2, NH=3, S=S, case=case)
+def _check_states_twin(B, NH, S, DH, L, case):
+    q, k, v, ig, fg = _inputs(S + 4, B=B, NH=NH, S=S, DH=DH, case=case)
     jin = tuple(map(jnp.asarray, (q, k, v, ig, fg)))
     out, cent, nent = _pallas_forward(*jin, L, 1e-6, True, save_states=True)
     m_ent = _m_entry_chain(*_prep(*jin, L)[4:6])
-    h, c, n, m = mlstm_forward_states_reference(
-        *prepare(*map(torch.from_numpy, (q, k, v, ig, fg)), L))
-    np.testing.assert_allclose(h.reshape(2, 3, -1, 16)[:, :, :S].numpy(), np.asarray(out),
+    prepared = prepare(*map(torch.from_numpy, (q, k, v, ig, fg)), L)
+    h, c, n, m = mlstm_forward_states_reference(*prepared)
+    np.testing.assert_allclose(h.reshape(B, NH, -1, DH)[:, :, :S].numpy(), np.asarray(out),
                                atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(c.numpy(), np.asarray(cent), atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(n.numpy(), np.asarray(nent)[:, :, 0], atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(m.numpy(), np.asarray(m_ent), atol=ATOL, rtol=RTOL)
+    # on the same gates the carry scan's m* is the JAX chain bit for bit
+    a, s = (jnp.asarray(t.numpy()) for t in prepared[3:5])
+    np.testing.assert_array_equal(m.numpy(), np.asarray(_m_entry_chain(a, s)))
+    if case == "underflow":  # the case reaches what it is named for
+        top = prepared[5][..., -1]
+        assert float(torch.exp(top - torch.maximum(m, top)).min()) == 0.0
+
+
+@pytest.mark.parametrize("S,L,case", [(97, 32, "realistic"), (130, 64, "extreme"),
+                                      (64, 16, "denominator")] + PHASE_CASES[:-1])
+def test_states_twin_matches_pallas_save_states(S, L, case):
+    _check_states_twin(2, 3, S, 16, L, case)
+
+
+@pytest.mark.parametrize("S,L,case", [(50, 64, "realistic"), (1000, 16, "realistic"),
+                                      (96, 16, "padding_tail"), (64, 16, "denominator")])
+def test_states_twin_matches_pallas_save_states_dh8(S, L, case):
+    _check_states_twin(1, 2, S, 8, L, case)
 
 
 @pytest.mark.parametrize("B,NH,S,DH,L,case,atol,rtol", [
     (2, 3, 97, 16, 32, "realistic", 2e-4, 1e-3),      # padded, several chunks
     (2, 3, 130, 16, 64, "realistic", 2e-4, 1e-3),
     (1, 2, 64, 8, 16, "denominator", 3e-4, 2e-3),     # the e^{-m} branch
+    (1, 2, 50, 16, 64, "realistic", 2e-4, 1e-3),      # one chunk
+    (1, 2, 1000, 8, 16, "realistic", 2e-4, 1e-3),     # 63 chunks
+    (2, 2, 96, 16, 16, "padding_tail", 2e-4, 1e-3),
+    (1, 2, 64, 16, 16, "underflow", 2e-4, 1e-3),
+    (2, 3, 97, 16, 32, "denominator", 3e-4, 2e-3),
 ])
 def test_backward_twin_matches_pallas_vjp(B, NH, S, DH, L, case, atol, rtol):
     """The fused backward on CPU tensors (states twin, backward twin, gate

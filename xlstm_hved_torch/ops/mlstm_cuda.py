@@ -4,27 +4,37 @@ reverse-chunk backward kernels, their plain twins, and the autograd Function.
 Three hand-written CUDA kernels port the Pallas TPU kernels of
 `xlstm_hved_tpu/ops/mlstm_pallas.py`:
 
-- `run_kernel` launches `mlstm_fwd` (`csrc/mlstm_fwd.cu`), the port of
+- `run_kernel` runs `mlstm_fwd` (`csrc/mlstm_fwd.cu`), the port of
   `_mlstm_kernel`: the readout h;
-- `run_states_kernel` launches `mlstm_fwd_states` (same source), the port of
-  `_mlstm_states_kernel`: h plus each chunk's entry state (C*, n*, m*);
-- `run_bwd_kernel` launches `mlstm_bwd` (`csrc/mlstm_bwd.cu`), the port of
+- `run_states_kernel` runs `mlstm_fwd_states` (the same launches), the port
+  of `_mlstm_states_kernel`: h, bitwise `run_kernel`'s, plus each chunk's
+  entry state (C*, n*, m*);
+- `run_bwd_kernel` runs `mlstm_bwd` (`csrc/mlstm_bwd.cu`), the port of
   `_mlstm_bwd_kernel`: the reverse-chunk adjoint with frozen stabilisers.
+
+The Pallas kernels walk the chunks of a head in order (in reverse for the
+backward). On the card only the chunk-to-chunk carry is sequential, so one
+call of each wrapper is three CUDA launches: per (head, chunk) blocks for
+the work of each chunk, a short scan over the chunks per head for the carry
+(C*, n*, m* forward; dC, dn, dm backward), then per (head, chunk) blocks
+again. The wrappers allocate every workspace; the kernels allocate nothing.
 
 As on the TPU, the exact fp32 gate transforms stay tensor ops around the
 launches: `prepare` (padding to a chunk multiple, the per-chunk cumsum of
 logsigmoid(f), s = i - a, the chunk-local cummax) and `gate_grads` (the
-dA -> d-fgate epilogue). The entry offsets m* come out of the states kernel,
-which forms them with the same fp32 operations as the JAX `_m_entry_chain`.
+dA -> d-fgate epilogue). The entry offsets m* come out of the forward's
+scan, which forms them with the same fp32 operations as the JAX
+`_m_entry_chain`.
 
 Each kernel has a plain PyTorch twin on the same prepared tensors
 (`mlstm_forward_reference`, `mlstm_forward_states_reference`,
-`mlstm_backward_reference`); the tests hold the twins against the JAX
-Pallas kernels and `chip_smoke.py` holds the kernels against the twins.
+`mlstm_backward_reference`), written in the kernel's three phases; the tests
+hold the twins against the JAX Pallas kernels and `chip_smoke.py` holds the
+kernels against the twins.
 
 `mlstm_forward` is the differentiable entry point: `MLSTMFunction` mirrors
-the `mlstm_pallas` custom VJP (forward: one `mlstm_fwd` launch, saving only
-the raw inputs; backward: one states launch and one backward launch).
+the `mlstm_pallas` custom VJP (forward: one `mlstm_fwd` call, saving only
+the raw inputs; backward: one states call and one backward call).
 `bwd_mode="scan"` instead recomputes through `ops.mlstm.mlstm_chunkwise` and
 its autograd, an oracle chosen only by the caller. The wrappers run on CUDA
 tensors and never fall back: CPU tensors, head widths the kernels were not
@@ -40,8 +50,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from xlstm_hved_torch.ops.mlstm import (MLSTM_EPS, _chunk_step, chunk_gates,
-                                        mlstm_chunkwise, pad_to_chunks)
+from xlstm_hved_torch.ops.mlstm import (MLSTM_EPS, chunk_gates, mlstm_chunkwise,
+                                        pad_to_chunks)
 from xlstm_hved_torch.utils import cuda_build
 
 SOURCES = ("mlstm_fwd", "mlstm_bwd")
@@ -53,9 +63,8 @@ _launchers = {}
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # function: (source, number of tensor pointers)
-    "mlstm_fwd_launch": ("mlstm_fwd", 7),
-    "mlstm_fwd_states_launch": ("mlstm_fwd", 10),
-    "mlstm_bwd_launch": ("mlstm_bwd", 15),
+    "mlstm_fwd_launch": ("mlstm_fwd", 12),
+    "mlstm_bwd_launch": ("mlstm_bwd", 22),
 }
 
 
@@ -75,11 +84,10 @@ def _launcher(fn_name: str):
     return _launchers[fn_name]
 
 
-def _launch(fn_name: str, tensors, BH: int, Sp: int, L: int, DH: int, eps: float):
+def _launch(fn_name: str, pointers, dev, BH: int, Sp: int, L: int, DH: int, eps: float):
     fn, error_string = _launcher(fn_name)
-    dev = tensors[0].device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(*(t.data_ptr() for t in tensors), BH, Sp, L, DH, eps, dev.index, stream)
+    rc = fn(*pointers, BH, Sp, L, DH, eps, dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: {error_string(rc).decode()} (code {rc})")
 
@@ -102,181 +110,248 @@ def prepare(q, k, v, igate, fgate, chunk_size: int = 128):
 
 # ---------------------------------------------------------------- plain twins
 
-def _entry_state(q):
-    BH, _, DH = q.shape
-    return (q.new_zeros((BH, DH, DH)), q.new_zeros((BH, DH)), q.new_full((BH,), -1e30))
+def _chunked(t, L: int):
+    """(BH, Sp, ...) -> (BH, Sp // L, L, ...), a view."""
+    return t.reshape(t.shape[0], -1, L, *t.shape[2:])
+
+
+def _readout(qs, kc, vc, a, s, cm, cent, nent, ment, eps: float):
+    """Every chunk's readout from its entry state, batched over chunks.
+    qs (q / sqrt(DH)), kc, vc: (BH, nchunks, L, DH); a, s, cm: (BH,
+    nchunks, L); the entry states (C*, n*, m*). Returns the causal decays
+    e^{s_j - M_t}, attn, inter = e^{m* - M_t}, q.C*, q.n*, num, rowsum,
+    e^{-max(a_t + M_t, -60)} and the denominator."""
+    L = a.shape[-1]
+    causal = torch.ones((L, L), dtype=torch.bool, device=qs.device).tril()
+    m_col = torch.maximum(cm, ment[..., None])                            # M_t
+    dec = torch.exp((s[..., None, :] - m_col[..., :, None]).masked_fill(~causal, float("-inf")))
+    attn = (qs @ kc.transpose(-1, -2)) * dec                              # (BH, nc, L, L)
+    inter = torch.exp(ment[..., None] - m_col)
+    q_c = qs @ cent
+    q_n = (qs @ nent[..., None])[..., 0]
+    num = attn @ vc + inter[..., None] * q_c
+    rowsum = attn.sum(-1) + inter * q_n
+    e_neg = torch.exp(-torch.clamp(a + m_col, min=-60.0))
+    denom = torch.maximum(rowsum.abs(), e_neg) + eps
+    return dec, attn, inter, q_c, q_n, num, rowsum, e_neg, denom
 
 
 def mlstm_forward_reference(q, k, v, a, s, cm, eps: float = MLSTM_EPS):
-    """Plain twin of `mlstm_fwd` on `prepare`d inputs: walk the chunks from
-    m* = -1e30. Returns h (B*NH, Sp, DH) fp32."""
+    """Plain twin of `mlstm_fwd` on `prepare`d inputs (the same three phases
+    as `mlstm_forward_states_reference`). Returns h (B*NH, Sp, DH) fp32."""
     return mlstm_forward_states_reference(q, k, v, a, s, cm, eps)[0]
 
 
 def mlstm_forward_states_reference(q, k, v, a, s, cm, eps: float = MLSTM_EPS):
-    """Plain twin of `mlstm_fwd_states`: h and, for each chunk, the state it
-    starts from. Returns h (BH, Sp, DH), cent (BH, nchunks, DH, DH),
-    nent (BH, nchunks, DH) and ment (BH, nchunks), all fp32."""
-    L = a.shape[-1]
-    state = _entry_state(q)
-    hs, entries = [], []
-    for c in range(a.shape[1]):
-        entries.append(state)
-        sl = slice(c * L, (c + 1) * L)
-        state, h = _chunk_step(state, q[:, sl], k[:, sl], v[:, sl],
-                               a[:, c], s[:, c], cm[:, c], eps)
-        hs.append(h)
+    """Plain twin of `mlstm_fwd_states`, in the kernel's three phases:
+    1. every chunk's local state relative to its largest s, cm_{L-1}:
+       K_c = sum_p e^{s_p - cm_{L-1}} k_p v_p^T and n_c = sum_p e^{..} k_p;
+    2. the carry scan from m* = -1e30: with M' = max(m*, cm_{L-1}),
+       C*' = e^{m* - M'} C* + e^{cm_{L-1} - M'} K_c (n* likewise) and
+       m*' = a_{L-1} + M', the fp32 operations of the JAX `_m_entry_chain`;
+    3. every chunk's readout from its entry state.
+    Returns h (BH, Sp, DH), cent (BH, nchunks, DH, DH), nent (BH, nchunks,
+    DH) and ment (BH, nchunks), all fp32."""
+    BH, Sp, DH = q.shape
+    nchunks, L = a.shape[1:]
+    kc, vc = _chunked(k, L), _chunked(v, L)
+    top = cm[..., -1]
+    kw = kc * torch.exp(s - top[..., None])[..., None]
+    k_loc, n_loc = kw.transpose(-1, -2) @ vc, kw.sum(2)
+    c_state, n_state = q.new_zeros((BH, DH, DH)), q.new_zeros((BH, DH))
+    m_state = q.new_full((BH,), -1e30)
+    entries = []
+    for c in range(nchunks):
+        entries.append((c_state, n_state, m_state))
+        m_new = torch.maximum(m_state, top[:, c])
+        decay_old, decay_new = torch.exp(m_state - m_new), torch.exp(top[:, c] - m_new)
+        c_state = decay_old[:, None, None] * c_state + decay_new[:, None, None] * k_loc[:, c]
+        n_state = decay_old[:, None] * n_state + decay_new[:, None] * n_loc[:, c]
+        m_state = a[:, c, -1] + m_new
     cent, nent, ment = (torch.stack(t, dim=1) for t in zip(*entries))
-    return torch.cat(hs, dim=1), cent, nent, ment
+    scale = 1.0 / math.sqrt(DH)
+    *_, num, _, _, denom = _readout(_chunked(q * scale, L), kc, vc, a, s, cm,
+                                    cent, nent, ment, eps)
+    return (num / denom[..., None]).reshape(BH, Sp, DH), cent, nent, ment
 
 
 def mlstm_backward_reference(q, k, v, g, a, s, cm, cent, nent, ment,
                              eps: float = MLSTM_EPS):
-    """Plain twin of `mlstm_bwd`: a step-by-step mirror of the Pallas
-    `_mlstm_bwd_kernel`, batched over heads, walking the chunks in reverse
-    and carrying the adjoints (dC, dn, dm) of the chunk-entry state. Every
+    """Plain twin of `mlstm_bwd`, in the kernel's three phases. Every
     max-based stabiliser is held constant (exact; see the JAX module
-    docstring). q, k, v, g: (BH, Sp, DH); a, s, cm: (BH, nchunks, L); the
-    entry states from the states kernel. Returns dq, dk, dv (BH, Sp, DH) and
-    ds, dax (BH, nchunks, L), all fp32."""
+    docstring), as in the Pallas `_mlstm_bwd_kernel`.
+    1. rows, every chunk from its entry state: the readout recomputed, dq,
+       dax but for the carried dm term, and the readout's adjoints of the
+       entry state (dC_read, dn_read, dm_read);
+    2. the reverse scan from a zero carry at the last chunk: dC_c is the
+       adjoint of chunk c's exit state, dC_{c-1} = e_dec_c dC_c + dC_read_c
+       (dn likewise), and dm_{c-1} = e_dec_c (sum dC_c * C*_c + sum dn_c *
+       n*_c) + dm_read_c lands on dax[c-1, L-1] (m*' = a_{L-1} + M');
+    3. columns, every chunk: dk, dv and ds from the recomputed attention and
+       the state update's adjoint under dC_c, dn_c.
+    q, k, v, g: (BH, Sp, DH); a, s, cm: (BH, nchunks, L); the entry states
+    from the states kernel. Returns dq, dk, dv (BH, Sp, DH) and ds, dax
+    (BH, nchunks, L), all fp32."""
     BH, Sp, DH = q.shape
     nchunks, L = a.shape[1:]
     scale = 1.0 / math.sqrt(DH)
-    causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
-    dc = q.new_zeros((BH, DH, DH))
-    dn = q.new_zeros((BH, DH))
-    dm = q.new_zeros((BH,))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    ds, dax = torch.empty_like(a), torch.empty_like(a)
-    tr = lambda t: t.transpose(1, 2)
+    tr = lambda t: t.transpose(-1, -2)
+    qs, kc, vc, gc = (_chunked(t, L) for t in (q * scale, k, v, g))
+    dec, attn, inter, q_c, q_n, num, rowsum, e_neg, denom = _readout(
+        qs, kc, vc, a, s, cm, cent, nent, ment, eps)
+    act = rowsum.abs() >= e_neg
+
+    # ---- 1. rows
+    g_over = gc / denom[..., None]
+    ddenom = -(gc * num).sum(-1) / (denom * denom)
+    drow = torch.where(act, torch.sign(rowsum) * ddenom, torch.zeros_like(ddenom))
+    dax = torch.where(act, torch.zeros_like(ddenom), -e_neg * ddenom)
+    dattn = g_over @ tr(vc) + drow[..., None]
+    dqk = dattn * dec
+    dq = scale * (dqk @ kc + inter[..., None] * (g_over @ tr(cent)
+                                                 + drow[..., None] * nent[:, :, None]))
+    dinter = (q_c * g_over).sum(-1) + drow * q_n
+    dm_read = (dinter * inter).sum(-1)                                    # (BH, nc)
+    dc_read = tr(qs * inter[..., None]) @ g_over                          # (BH, nc, DH, DH)
+    dn_read = ((inter * drow)[..., None] * qs).sum(2)
+
+    # ---- 2. the reverse scan
+    top = cm[..., -1]
+    m_new = torch.maximum(ment, top)                                      # M'
+    e_dec = torch.exp(ment - m_new)
+    dc, dn = q.new_zeros((BH, DH, DH)), q.new_zeros((BH, DH))
+    carries = []
     for c in reversed(range(nchunks)):
-        sl = slice(c * L, (c + 1) * L)
-        qs, kc, vc, gc = q[:, sl] * scale, k[:, sl], v[:, sl], g[:, sl]
-        ac, sc, cmc = a[:, c], s[:, c], cm[:, c]
-        c_in, n_in, m_in = cent[:, c], nent[:, c], ment[:, c]
+        carries.append((dc, dn))
+        dc = e_dec[:, c, None, None] * dc + dc_read[:, c]
+        dn = e_dec[:, c, None] * dn + dn_read[:, c]
+    dc_out, dn_out = (torch.stack(t[::-1], dim=1) for t in zip(*carries))
+    dm_entry = e_dec * ((dc_out * cent).sum((-1, -2)) + (dn_out * nent).sum(-1)) + dm_read
+    dax[:, :-1, -1] += dm_entry[:, 1:]
 
-        # ---- recompute the forward readout quantities
-        m_col = torch.maximum(cmc, m_in[:, None])                 # (BH, L)
-        dec = torch.exp((sc[:, None, :] - m_col[:, :, None]).masked_fill(~causal, float("-inf")))
-        attn = (qs @ tr(kc)) * dec                                # (BH, L, L)
-        inter = torch.exp(m_in[:, None] - m_col)                  # (BH, L)
-        q_c = qs @ c_in                                           # (BH, L, DH)
-        q_n = (qs @ n_in[..., None])[..., 0]                      # (BH, L)
-        num = attn @ vc + inter[..., None] * q_c
-        rowsum = attn.sum(-1) + inter * q_n
-        e_neg = torch.exp(-torch.clamp(ac + m_col, min=-60.0))
-        denom = torch.maximum(rowsum.abs(), e_neg) + eps
-        act = rowsum.abs() >= e_neg
-
-        # ---- readout backward
-        g_over = gc / denom[..., None]
-        ddenom = -(gc * num).sum(-1) / (denom * denom)
-        drow = torch.where(act, torch.sign(rowsum) * ddenom, torch.zeros_like(ddenom))
-        dax_c = torch.where(act, torch.zeros_like(ddenom), -e_neg * ddenom)
-        dax_c[:, -1] += dm
-        dattn = g_over @ tr(vc) + drow[..., None]
-        dqk = dattn * dec
-        dqs = dqk @ kc + inter[..., None] * (g_over @ tr(c_in) + drow[..., None] * n_in[:, None])
-        dk_i = tr(dqk) @ qs
-        dv_i = tr(attn) @ g_over
-        dinter = (q_c * g_over).sum(-1) + drow * q_n
-        dm_read = (dinter * inter).sum(-1)
-        dc_read = tr(qs * inter[..., None]) @ g_over
-        dn_read = ((inter * drow)[..., None] * qs).sum(1)
-        ds_intra = (dattn * attn).sum(1)
-
-        # ---- state-update backward
-        m_new = torch.maximum(m_in, cmc[:, -1])
-        w = torch.exp(sc - m_new[:, None])                        # (BH, L)
-        e_dec = torch.exp(m_in - m_new)
-        vdc = vc @ tr(dc)
-        dk_s = w[..., None] * (vdc + dn[:, None])
-        dv_s = w[..., None] * (kc @ dc)
-        ds_state = w * ((kc * vdc).sum(-1) + (kc @ dn[..., None])[..., 0])
-        dm_dec = e_dec * ((dc * c_in).sum((1, 2)) + (dn * n_in).sum(-1))
-
-        dq[:, sl] = scale * dqs
-        dk[:, sl] = dk_i + dk_s
-        dv[:, sl] = dv_i + dv_s
-        ds[:, c] = ds_intra + ds_state
-        dax[:, c] = dax_c
-        dc = e_dec[:, None, None] * dc + dc_read
-        dn = e_dec[:, None] * dn + dn_read
-        dm = dm_dec + dm_read
-    return dq, dk, dv, ds, dax
+    # ---- 3. columns
+    w = torch.exp(s - m_new[..., None])                                   # e^{s_p - M'}
+    vdc = vc @ tr(dc_out)
+    dk = tr(dqk) @ qs + w[..., None] * (vdc + dn_out[:, :, None])
+    dv = tr(attn) @ g_over + w[..., None] * (kc @ dc_out)
+    ds = (dattn * attn).sum(-2) + w * ((kc * vdc).sum(-1) + (kc @ dn_out[..., None])[..., 0])
+    flat = lambda t: t.reshape(BH, Sp, DH)
+    return flat(dq), flat(dk), flat(dv), ds, dax
 
 
 # ---------------------------------------------------------------- launchers
 
-def _check_prepared(name, q, a, tensors):
+def _prepared_dims(name, q, a):
+    """(BH, Sp, DH, L) of prepared q (BH, Sp, DH) and a (BH, Sp // L, L),
+    if the kernels were built for them."""
+    if q.dim() != 3 or a.dim() != 3:
+        raise ValueError(f"{name}: q and a must be 3-D; got {tuple(q.shape)}, {tuple(a.shape)}")
     BH, Sp, DH = q.shape
-    L = a.shape[-1]
-    if (a.shape[:2] != (BH, Sp // L) or Sp % L or DH not in SUPPORTED_DH
-            or L > MAX_CHUNK):
+    nchunks, L = a.shape[1:]
+    if nchunks * L != Sp or DH not in SUPPORTED_DH or L > MAX_CHUNK:
         raise ValueError(f"{name}: unsupported prepared shapes q {tuple(q.shape)}, "
                          f"a {tuple(a.shape)}")
-    if not all(t.device == q.device and t.device.type == "cuda" and t.is_contiguous()
-               and t.dtype == torch.float32 for t in tensors):
-        raise ValueError(f"{name} takes contiguous fp32 CUDA tensors on one device")
     return BH, Sp, DH, L
 
 
-def _check_shapes(pairs):
-    for t, shape in pairs:
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"shape {tuple(t.shape)} where {tuple(shape)} was expected")
+def _pointers(name, tensors, shapes):
+    """The data pointers of `tensors`, once each is a contiguous fp32 tensor
+    of its shape on the first one's CUDA device (one pass, as this runs
+    before every launch); and that device."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors; got {dev}")
+    for t, shape in zip(tensors, shapes):
+        if (t.shape != shape or t.dtype != torch.float32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} takes contiguous fp32 tensors on {dev} of the prepared "
+                             f"shapes; got {tuple(t.shape)} {t.dtype} on {t.device} where "
+                             f"{tuple(shape)} was expected")
+    return [t.data_ptr() for t in tensors], dev
+
+
+def _workspace(like, sizes):
+    """One fp32 allocation cut into consecutive pieces of `sizes` elements:
+    the buffer and a pointer to each piece. Workspaces the caller never sees
+    need no tensor views, so one call allocates once, however many it has."""
+    buf = like.new_empty(sum(sizes))
+    ptr, pieces = buf.data_ptr(), []
+    for n in sizes:
+        pieces.append(ptr)
+        ptr += 4 * n
+    return buf, pieces
+
+
+def _forward_launch(name, q, k, v, a, s, cm, eps, states: bool):
+    """The three launches of `csrc/mlstm_fwd.cu`, the entry states and the
+    chunks' local states in one workspace. Returns h, and with `states` the
+    entry states as views of the workspace."""
+    BH, Sp, DH, L = _prepared_dims(name, q, a)
+    nchunks = Sp // L
+    ptrs, dev = _pointers(name, (q, k, v, a, s, cm), (q.shape,) * 3 + ((BH, nchunks, L),) * 3)
+    n_c, n_n, n_m = BH * nchunks * DH * DH, BH * nchunks * DH, BH * nchunks
+    out = torch.empty_like(q)
+    buf, (cent, nent, k_loc, n_loc, ment) = _workspace(q, (n_c, n_n, n_c, n_n, n_m))
+    _launch("mlstm_fwd_launch", (*ptrs, out.data_ptr(), k_loc, n_loc, cent, nent, ment),
+            dev, BH, Sp, L, DH, eps)
+    if not states:
+        return out
+    return (out, buf[:n_c].view(BH, nchunks, DH, DH), buf[n_c:n_c + n_n].view(BH, nchunks, DH),
+            buf[-n_m:].view(BH, nchunks))
 
 
 def run_kernel(q, k, v, a, s, cm, eps: float = MLSTM_EPS):
-    """One launch of `mlstm_fwd` on `prepare`d CUDA tensors
+    """One call of `mlstm_fwd` on `prepare`d CUDA tensors
     (q, k, v: (BH, Sp, DH); a, s, cm: (BH, Sp // L, L), all contiguous
-    fp32). Returns (BH, Sp, DH) fp32. Adds one to `run_kernel.launches`."""
-    _check_shapes(((k, q.shape), (v, q.shape), (s, a.shape), (cm, a.shape)))
-    BH, Sp, DH, L = _check_prepared("mlstm_fwd", q, a, (q, k, v, a, s, cm))
-    out = torch.empty_like(q)
-    _launch("mlstm_fwd_launch", (q, k, v, a, s, cm, out), BH, Sp, L, DH, eps)
+    fp32): its three launches, the entry states kept in a workspace.
+    Returns (BH, Sp, DH) fp32, bitwise `run_states_kernel`'s h. Adds one to
+    `run_kernel.launches`."""
+    out = _forward_launch("mlstm_fwd", q, k, v, a, s, cm, eps, states=False)
     run_kernel.launches += 1
     return out
 
 
 def run_states_kernel(q, k, v, a, s, cm, eps: float = MLSTM_EPS):
-    """One launch of `mlstm_fwd_states`: as `run_kernel`, and also each
+    """One call of `mlstm_fwd_states`: as `run_kernel`, and also each
     chunk's entry state. Returns h (BH, Sp, DH), cent (BH, nchunks, DH, DH),
     nent (BH, nchunks, DH), ment (BH, nchunks). Adds one to
     `run_states_kernel.launches`."""
-    _check_shapes(((k, q.shape), (v, q.shape), (s, a.shape), (cm, a.shape)))
-    BH, Sp, DH, L = _check_prepared("mlstm_fwd_states", q, a, (q, k, v, a, s, cm))
-    nchunks = Sp // L
-    out = torch.empty_like(q)
-    cent = q.new_empty((BH, nchunks, DH, DH))
-    nent = q.new_empty((BH, nchunks, DH))
-    ment = q.new_empty((BH, nchunks))
-    _launch("mlstm_fwd_states_launch", (q, k, v, a, s, cm, out, cent, nent, ment),
-            BH, Sp, L, DH, eps)
+    result = _forward_launch("mlstm_fwd_states", q, k, v, a, s, cm, eps, states=True)
     run_states_kernel.launches += 1
-    return out, cent, nent, ment
+    return result
 
 
 def run_bwd_kernel(q, k, v, g, a, s, cm, cent, nent, ment, eps: float = MLSTM_EPS):
-    """One launch of `mlstm_bwd` on prepared CUDA tensors and the states
-    kernel's entry states. Returns dq, dk, dv (BH, Sp, DH) and ds, dax
-    (BH, nchunks, L). Adds one to `run_bwd_kernel.launches`."""
-    BH, Sp, DH = q.shape
-    nchunks = a.shape[1]
-    _check_shapes(((k, q.shape), (v, q.shape), (g, q.shape), (s, a.shape),
-                   (cm, a.shape), (cent, (BH, nchunks, DH, DH)),
-                   (nent, (BH, nchunks, DH)), (ment, (BH, nchunks))))
-    _, _, _, L = _check_prepared("mlstm_bwd", q, a,
-                                 (q, k, v, g, a, s, cm, cent, nent, ment))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    ds, dax = torch.empty_like(a), torch.empty_like(a)
-    _launch("mlstm_bwd_launch", (q, k, v, g, a, s, cm, cent, nent, ment,
-                                 dq, dk, dv, ds, dax), BH, Sp, L, DH, eps)
+    """One call of `mlstm_bwd` (its three launches) on prepared CUDA
+    tensors and the states kernel's entry states. Returns dq, dk, dv
+    (BH, Sp, DH) and ds, dax (BH, nchunks, L). Adds one to
+    `run_bwd_kernel.launches`."""
+    BH, Sp, DH, L = _prepared_dims("mlstm_bwd", q, a)
+    nchunks = Sp // L
+    ptrs, dev = _pointers("mlstm_bwd", (q, k, v, g, a, s, cm, cent, nent, ment),
+                          (q.shape,) * 4 + ((BH, nchunks, L),) * 3
+                          + ((BH, nchunks, DH, DH), (BH, nchunks, DH), (BH, nchunks)))
+    # three allocations, not twelve: the outputs by shape, and one workspace
+    # for each chunk's readout adjoints of its entry state and its incoming
+    # carry, and each row's denominator and d rowsum
+    grads, chunk_grads = q.new_empty((3, *q.shape)), a.new_empty((2, *a.shape))
+    n_c, n_n, n_a, n_m = BH * nchunks * DH * DH, BH * nchunks * DH, BH * Sp, BH * nchunks
+    work, (dc_read, dc_carry, dn_read, dn_carry, denom, drow, dm_read) = _workspace(
+        q, (n_c, n_c, n_n, n_n, n_a, n_a, n_m))
+    dq, dk, dv = grads.unbind(0)
+    ds, dax = chunk_grads.unbind(0)
+    _launch("mlstm_bwd_launch",
+            (*ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ds.data_ptr(), dax.data_ptr(),
+             denom, drow, dc_read, dn_read, dm_read, dc_carry, dn_carry),
+            dev, BH, Sp, L, DH, eps)
     run_bwd_kernel.launches += 1
     return dq, dk, dv, ds, dax
 
 
-# Kernel launches since each count was last set to 0 (read by chip_smoke.py).
+# Calls of each wrapper since its count was last set to 0 (read by
+# chip_smoke.py). One call enqueues three CUDA kernels: chunk states, carry
+# scan and readout for the forward wrappers; rows, reverse scan and columns
+# for the backward.
 run_kernel.launches = 0
 run_states_kernel.launches = 0
 run_bwd_kernel.launches = 0
