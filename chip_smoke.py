@@ -36,6 +36,19 @@ plain twin):
              running statistics move, and exactly 2 mlstm_fwd, 2
              mlstm_fwd_states and 2 mlstm_bwd launches per step; the same
              step's time at 128^3
+ 7. cli      the training entry points as a user runs them, in-process
+             through their main(argv) on --device cuda at the CLI defaults
+             (crop 128x192x128, f_maps 4, Discriminator(64, 4), fp32), on a
+             synthetic BraTS-layout dataset written by the port (2 training
+             and 1 validation subject of 240x240x155): cli.check --decode;
+             cli.pretrain one epoch (the seg decoders bitwise frozen, the
+             BatchNorm statistics unchanged, 1 mlstm_fwd, 1 mlstm_fwd_states
+             and 1 mlstm_bwd per step, 2 mlstm_fwd per validation item);
+             cli.train one epoch from the pretrain weights (the surgery's
+             counts as the name/shape rule gives them, 2/2/2 launches per
+             step); the same command with --num_epochs 2 resumes and runs
+             epoch 2 only. Seconds per epoch and per step, the host's share
+             of a step (loader waits and batch assembly) and peak memory
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Bounds:
@@ -533,7 +546,193 @@ def check_train(dev, gen):
           f"{['%.1f' % t for t in times3]}, peak {peak3:.2f} GiB", flush=True)
     summary = (f"{'x'.join(map(str, crop))} {step_ms:.1f} ms/step, peak {peak_gib:.2f} GiB; "
                f"128x128x128 {step3_ms:.1f} ms/step; launches per step {per_step}")
-    return {"per_step": per_step, "launches": launches, "summary": summary}
+    measured = {name: n // len(times) for name, n in launches.items()}
+    return {"per_step": measured, "launches": launches, "summary": summary}
+
+
+CLI_SHAPE = (240, 240, 155)   # the volume size of the full reference protocol
+CLI_PER_PRETRAIN_STEP = {"mlstm_fwd": 1, "mlstm_fwd_states": 1, "mlstm_bwd": 1}
+CLI_PER_TRAIN_STEP = {"mlstm_fwd": 2, "mlstm_fwd_states": 2, "mlstm_bwd": 2}
+CLI_PER_VALID_ITEM = {"mlstm_fwd": 2, "mlstm_fwd_states": 0, "mlstm_bwd": 0}
+
+
+def read_csv(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def check_cli(dev):
+    """Phase 7, the training entry points through their main(argv). Returns
+    the launches of the phase's runs, the launches per pretrain step as
+    measured, and a summary."""
+    import tempfile
+
+    import torch
+    from xlstm_hved_torch.cli import check as check_main
+    from xlstm_hved_torch.cli import pretrain as pretrain_main
+    from xlstm_hved_torch.cli import train as train_main
+    from xlstm_hved_torch.config import TrainConfig
+    from xlstm_hved_torch.data.synthetic import write_synthetic_dataset
+    from xlstm_hved_torch.engine.checkpoint import CheckpointManager
+    from xlstm_hved_torch.engine.train import create_train_state
+    from xlstm_hved_torch.models import Discriminator, find_model_using_name
+    from xlstm_hved_torch.ops import mlstm_cuda as mc
+
+    counters = {"mlstm_fwd": mc.run_kernel, "mlstm_fwd_states": mc.run_states_kernel,
+                "mlstm_bwd": mc.run_bwd_kernel}
+    total = dict.fromkeys(counters, 0)
+
+    def run(fn, argv):
+        """main(argv) with the launch counts set to 0 just before it and read
+        just after; the peak device memory of the run."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        summary = fn(argv)
+        torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+        for name, n in launches.items():
+            total[name] += n
+        return summary, launches, torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    def expect_launches(what, launches, summary, per_step):
+        """The run's launches against the expected counts; returns its steps,
+        validation items and measured launches per step."""
+        steps = sum(e["steps"] for e in summary["epochs"])
+        items = sum(e["valid_items"] for e in summary["epochs"])
+        want = {n: steps * per_step[n] + items * CLI_PER_VALID_ITEM[n] for n in counters}
+        if launches != want:
+            fail(f"{what}: {steps} steps and {items} validation items launched "
+                 f"{launches}, expected {want}")
+        measured = {n: (launches[n] - items * CLI_PER_VALID_ITEM[n]) // steps for n in counters}
+        return steps, items, measured
+
+    def timing(what, summary, peak):
+        epochs = summary["epochs"]
+        sp = {k: sum(e["spans"][k] for e in epochs) for k in epochs[0]["spans"]}
+        steps = sum(e["steps"] for e in epochs)
+        host = sp["train_wait"] + sp["train_batch"]
+        share = host / (host + sp["train_step"])
+        line = (f"  {what}: epochs {['%.2f' % e['seconds'] for e in epochs]} s | per step "
+                f"{sp['train_step'] / steps:.3f} s, batch assembly {sp['train_batch'] / steps:.3f}"
+                f" s per item, loader wait {sp['train_wait'] / steps:.3f} s per step, host "
+                f"share {share:.3f} | validation {sp['valid_step']:.2f} s + assembly "
+                f"{sp['valid_batch']:.3f} s + wait {sp['valid_wait']:.3f} s | peak {peak:.2f} GiB")
+        print(line, flush=True)
+        return dict(spans=sp, steps=steps, host_share=share, peak_gib=peak,
+                    epoch_s=[e["seconds"] for e in epochs])
+
+    def csv_rows(path, n, what):
+        rows = read_csv(path)
+        if len(rows) != n:
+            fail(f"{what}: {len(rows)} CSV rows in {path}, expected {n}")
+        for row in rows:
+            bad = [k for k, v in row.items() if v != "" and not math.isfinite(float(v))]
+            if bad:
+                fail(f"{what}: non-finite CSV values {bad}")
+        return rows
+
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        t = time.perf_counter()
+        train_dir = write_synthetic_dataset(os.path.join(root, "train"), 2, CLI_SHAPE, seed=0)
+        valid_dir = write_synthetic_dataset(os.path.join(root, "valid"), 1, CLI_SHAPE, seed=1)
+        out = os.path.join(root, "results")
+        print(f"  synthetic dataset, 3 subjects of {'x'.join(map(str, CLI_SHAPE))}: "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        common = ["--device", str(dev), "--num_epochs", "1", "--train_dir", train_dir,
+                  "--valid_dir", valid_dir, "--out_dir", out]
+
+        # 1. check
+        good, bad = check_main.main(["--data_dir", train_dir, "--decode",
+                                     "--out_file", os.path.join(root, "subjects.txt")])
+        if len(good) != 2 or bad:
+            fail(f"cli.check: {good} OK, {bad} failed")
+
+        # 2. pretrain
+        summary, launches, peak = run(pretrain_main.main, common)
+        pdir = os.path.join(out, "U_HVEDDuSFEmViLDFNet3D_pretrain")
+        ckpt = CheckpointManager(pdir)
+        if not (ckpt.exists("latest") and ckpt.exists("best_vloss")):
+            fail(f"cli.pretrain: latest / best_vloss missing under {pdir}")
+        csv_rows(os.path.join(pdir, "loss_and_metrics.csv"), 1, "cli.pretrain")
+        steps, items, pretrain_per_step = expect_launches("cli.pretrain", launches, summary,
+                                                          CLI_PER_PRETRAIN_STEP)
+        after = ckpt.restore_raw("latest")[0]["model"]
+        # the pretrain CLI's initial weights, drawn again from its seed
+        args = pretrain_main.base_parser("").parse_args(common)
+        first = find_model_using_name("U_HVEDDuSFEmViLDFNet3D", device=dev, seed=args.seed,
+                                      shared_recon=False)
+        create_train_state(first, Discriminator(f_maps=args.disc_fmaps, kernel=args.disc_kernel),
+                           TrainConfig(), args.seed,
+                           torch.zeros((1, 4, *args.crop_size), device=dev),
+                           init_scheme=args.init_scheme)
+        before = {n: t.detach().cpu() for n, t in first.state_dict().items()}
+        params = dict(first.named_parameters())
+        frozen = [n for n in params if "sdecoder" in n]
+        moved = [n for n in params if not torch.equal(before[n], after[n])]
+        stats = [n for n in before if "running_" in n]
+        if not frozen or set(frozen) & set(moved):
+            fail(f"cli.pretrain: sdecoder parameters moved: {sorted(set(frozen) & set(moved))}")
+        if len(moved) < 0.9 * (len(params) - len(frozen)):
+            fail(f"cli.pretrain: only {len(moved)} of {len(params) - len(frozen)} trainable "
+                 "parameters moved")
+        if any(not torch.equal(before[n], after[n]) for n in stats):
+            fail("cli.pretrain: BatchNorm running statistics moved (eval-mode BatchNorm)")
+        del first, after
+        report["pretrain"] = timing("cli.pretrain", summary, peak)
+        print(f"  cli.pretrain: {steps} steps, {items} validation items, launches "
+              f"{launches}; {len(frozen)} sdecoder tensors bitwise frozen, {len(moved)} of "
+              f"{len(params) - len(frozen)} others moved, {len(stats)} running statistics "
+              "unchanged", flush=True)
+
+        # 3. train from the pretrain weights
+        argv = common + ["--pretrain_weights", pdir]
+        summary, launches, peak = run(train_main.main, argv)
+        donor = ckpt.restore_raw("best_vloss")[0]["model"]
+        target = find_model_using_name("XLSTM_HVED", device="cpu")
+        rule = sum(n in donor and tuple(donor[n].shape) == tuple(p.shape)
+                   for n, p in target.named_parameters())
+        rule = (rule, len(list(target.parameters())) - rule)
+        if summary["surgery"] != rule:
+            fail(f"cli.train: surgery loaded/skipped {summary['surgery']}, the name/shape "
+                 f"rule gives {rule}")
+        tdir = os.path.join(out, "XLSTM_HVED")
+        tckpt = CheckpointManager(tdir)
+        if not all(tckpt.exists(n) for n in ("latest", "best_vloss", "best_dice")):
+            fail(f"cli.train: latest / best_vloss / best_dice missing under {tdir}")
+        csv_path = os.path.join(tdir, "loss_and_metrics.csv")
+        csv_rows(csv_path, 1, "cli.train")
+        steps, items, _ = expect_launches("cli.train", launches, summary, CLI_PER_TRAIN_STEP)
+        report["train"] = timing("cli.train", summary, peak)
+        print(f"  cli.train: surgery loaded {rule[0]}, skipped {rule[1]}; {steps} steps, "
+              f"{items} validation items, launches {launches}", flush=True)
+
+        # 4. the same command, two epochs: resumes, runs epoch 2 only
+        argv[argv.index("--num_epochs") + 1] = "2"
+        summary, launches, peak = run(train_main.main, argv)
+        if [e["epoch"] for e in summary["epochs"]] != [2]:
+            fail(f"cli.train resumed: ran epochs {[e['epoch'] for e in summary['epochs']]}, "
+                 "expected [2]")
+        rows = csv_rows(csv_path, 2, "cli.train resumed")
+        if [int(r["Epoch"]) for r in rows] != [1, 2]:
+            fail(f"cli.train resumed: CSV epochs {[r['Epoch'] for r in rows]}")
+        saved_step = tckpt.restore_raw("latest")[0]["step"]
+        if summary["step"] != 2 * steps or saved_step != 2 * steps:
+            fail(f"cli.train resumed: step {summary['step']}, saved {saved_step}, "
+                 f"expected {2 * steps}")
+        expect_launches("cli.train resumed", launches, summary, CLI_PER_TRAIN_STEP)
+        report["resume"] = timing("cli.train resumed", summary, peak)
+        print(f"  cli.train resumed: epoch 2 only, CSV epochs 1 and 2, step {saved_step}, "
+              f"launches {launches}", flush=True)
+
+    summary = " | ".join(
+        f"{k} {v['spans']['train_step'] / v['steps']:.2f} s/step, host share "
+        f"{v['host_share']:.3f}, peak {v['peak_gib']:.2f} GiB" for k, v in report.items())
+    return {"launches": total, "pretrain_per_step": pretrain_per_step, "report": report,
+            "summary": summary}
 
 
 def main():
@@ -667,6 +866,15 @@ def main():
     for name in ("mlstm_fwd_states", "mlstm_bwd"):
         rows[name]["launches"] = train["launches"][name]
     done("train", t0, train["summary"])
+
+    # ---- 7. cli: the training entry points
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cli = check_cli(dev)
+    for name in ("mlstm_fwd", "mlstm_fwd_states", "mlstm_bwd"):
+        rows[name]["launches_cli"] = cli["launches"][name]
+        rows[name]["launches_per_pretrain_step"] = cli["pretrain_per_step"][name]
+    done("cli", t0, cli["summary"])
 
     for name, row in rows.items():
         row["max_abs_err"] = worst[name]

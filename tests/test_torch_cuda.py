@@ -1,7 +1,8 @@
 """PyTorch port on the card: the CUDA mLSTM kernels (forward, states-saving
 forward, backward) against their plain twins, the differentiable wrapper
-against autograd through the plain scan, and the model's kernel path against
-its plain path. These need a CUDA
+against autograd through the plain scan, and the model's kernel path (the
+forward, the train step, the pretrain step) against its plain path. These
+need a CUDA
 device and nvcc; without a card they skip. Run them on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -13,10 +14,13 @@ import pytest
 import torch
 
 from xlstm_hved_torch.config import TrainConfig
-from xlstm_hved_torch.engine.train import create_train_state, make_train_step
+from xlstm_hved_torch.engine.train import (create_train_state, freeze_mask_for,
+                                           make_pretrain_step, make_train_step,
+                                           pretrain_objective)
 from xlstm_hved_torch.models import Discriminator, find_model_using_name
 from xlstm_hved_torch.ops import mlstm_cuda
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise
+from xlstm_hved_torch.utils.subsets import subset_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -147,3 +151,49 @@ def test_train_step_goes_through_the_kernels(dev):
     assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 2, 2]
     assert state.step == 1
     assert all(torch.isfinite(torch.as_tensor(float(v))) for v in metrics.values())
+
+
+def test_pretrain_step_through_the_kernels_matches_plain(dev):
+    """The pretrain objective's gradients through the kernels against those
+    through the plain mLSTM, under chip_smoke.py's G-gradient bounds (per
+    tensor max|d| <= 5e-3 * max|ref| + 3e-4 * the largest gradient), then
+    one whole pretrain step: 1/1/1 launches and the seg decoders frozen."""
+    cfg = TrainConfig(crop_size=(32, 32, 32))
+    name = "U_HVEDDuSFEmViLDFNet3D"
+    model = find_model_using_name(name, device=dev, seed=6, shared_recon=False)
+    x = torch.rand(1, 4, 32, 32, 32, generator=torch.Generator(device=dev).manual_seed(7),
+                   device=dev)
+    state = create_train_state(model, Discriminator(f_maps=8, kernel=3), cfg, 0, x,
+                               init_scheme="reference")
+    plain = find_model_using_name(name, device=dev, seed=6, shared_recon=False,
+                                  mlstm_kernel=False)
+    plain.load_state_dict(model.state_dict())
+    keep = subset_mask(6, dev)
+    grads = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for m in (model, plain):
+            loss, _ = pretrain_objective(m, cfg)(x, keep, deterministic=True)
+            names, params = zip(*m.named_parameters())
+            got = torch.autograd.grad(loss, params, allow_unused=True)
+            grads.append({n: g for n, g in zip(names, got) if g is not None})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    got, want = grads
+    assert set(got) == set(want) and "mvil.vil.layer.mlstm_cell.igate.weight" in got
+    floor = 3e-4 * max(float(g.abs().max()) for g in want.values())
+    for n, ref in want.items():
+        assert torch.isfinite(got[n]).all(), n
+        assert float((got[n] - ref).abs().max()) <= 5e-3 * float(ref.abs().max()) + floor, n
+
+    freeze = freeze_mask_for(model, ("sdecoder",))
+    step = make_pretrain_step(model, cfg, freeze_mask=freeze)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    counters = (mlstm_cuda.run_kernel, mlstm_cuda.run_states_kernel, mlstm_cuda.run_bwd_kernel)
+    counts = [fn.launches for fn in counters]
+    state, metrics = step(state, x)
+    torch.cuda.synchronize()
+    assert [fn.launches - c for fn, c in zip(counters, counts)] == [1, 1, 1]
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
+    assert all(torch.equal(p, before[n]) for n, p in model.named_parameters()
+               if freeze[n] == 0.0)

@@ -43,12 +43,13 @@ def test_port_imports_no_jax(path):
 
 
 def test_port_imports_without_jax_installed():
-    """Import every port module in a fresh interpreter where jax/flax and
-    the JAX package cannot be imported."""
+    """Import every port module in a fresh interpreter where jax/flax, the
+    JAX package and h5py (absent on the card machine; the HDF5 datasets
+    import it when one is opened) cannot be imported."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
         for p in (REPO / "xlstm_hved_torch").rglob("*.py"))
-    block = "; ".join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
+    block = "; ".join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN + ("h5py",))
     code = f"import sys; {block}; " + "; ".join(f"import {m}" for m in modules)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env,

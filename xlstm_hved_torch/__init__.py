@@ -1,5 +1,6 @@
 """xlstm_hved_torch — the PyTorch/CUDA port of XLSTM-HVED (the inference
-path and the adversarial train step) for one NVIDIA H100.
+path, the adversarial train step, the recon pretrain step and the training
+entry points) for one NVIDIA H100.
 
 It mirrors the layout of the JAX package `xlstm_hved_tpu` (the reference it
 is held against) but imports nothing from it. Volumes are NCDHW
@@ -16,11 +17,17 @@ Subpackages
            mLSTM wrappers and their autograd Function
 - nn:      conv blocks, flax-style BatchNorm, ViL stack, skip-return gate,
            DuSE, the discriminator block, the init schemes
-- models:  HVEDFusionNet, the Discriminator and the model-zoo factory
-- losses, metrics: the training objective's terms, dice and PSNR
-- engine:  the adversarial train step, the eval step, sliding-window
-           inference and the 15-subset sweep
-- utils:   subset table and samplers, JAX-tree weight conversion, CUDA build
+- models:  HVEDFusionNet (a shared recon decoder or one per modality), the
+           Discriminator and the model-zoo factory
+- losses, metrics: the training objective's terms, dice, IoU, PSNR, SSIM
+- engine:  the adversarial train step, the pretrain step and freeze masks,
+           the eval step, sliding-window inference, the 15-subset sweep,
+           checkpoints and pretrained-weight surgery
+- data:    NIfTI I/O, synthetic BraTS volumes, host and device augmentation,
+           signed distance maps, the datasets and the prefetching loader
+- cli:     the train, pretrain and check entry points
+- utils:   subset table and samplers, JAX-tree weight conversion, CUDA build,
+           CSV logs, timers and the profiler scope
 """
 
 __version__ = "0.1.0"

@@ -18,6 +18,10 @@ One step, in the JAX step's order:
 5. the D step on the detached outputs, with D as it was before the step;
 6. the metrics.
 
+The pretrain step (`make_pretrain_step`) trains the recon decoders alone:
+seg branch off, BatchNorm on its running statistics, MSE recon + beta * KL,
+with the seg decoders frozen (`freeze_mask_for`).
+
 Randomness comes from the state's generators: subset draws from a CPU
 generator, the latent noise from one on the model's device. The G and D
 forwards run on whatever device the modules are on; the mLSTM goes through
@@ -26,7 +30,7 @@ the CUDA kernels there and through the plain scan on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -196,6 +200,27 @@ def _step(opt: torch.optim.Optimizer, params, grads, lr: float):
     opt.zero_grad(set_to_none=True)
 
 
+def _masked_g_update(model: nn.Module, freeze_mask: Optional[Mapping[str, float]]):
+    """update(opt, loss, lr): the G gradients of `loss` times the freeze mask,
+    one optimizer step, and the parameters with mask 0 put back where they
+    were (the JAX steps mask the update too: the weight decay would move
+    them)."""
+    names, params = zip(*model.named_parameters())
+    params = list(params)
+    scale = [float((freeze_mask or {}).get(n, 1.0)) for n in names]
+    frozen = [p for p, m in zip(params, scale) if m == 0.0]
+
+    def update(opt: torch.optim.Optimizer, loss, lr: float):
+        grads = [g if m == 1.0 else g * m for g, m in zip(_grads(loss, params), scale)]
+        kept = [p.detach().clone() for p in frozen]
+        _step(opt, params, grads, lr)
+        with torch.no_grad():
+            for p, old in zip(frozen, kept):
+                p.copy_(old)
+
+    return update
+
+
 def make_train_step(model: nn.Module, disc: nn.Module, cfg: TrainConfig,
                     steps_per_epoch: int = 1,
                     freeze_mask: Optional[Mapping[str, float]] = None) -> Callable:
@@ -209,10 +234,8 @@ def make_train_step(model: nn.Module, disc: nn.Module, cfg: TrainConfig,
                              cfg.poly_power)
     loss_g = _g_objective(model, disc, cfg)
     loss_d_fn = make_loss_d(disc, cfg)
-    names_g, params_g = zip(*model.named_parameters())
+    update_g = _masked_g_update(model, freeze_mask)
     params_d = list(disc.parameters())
-    scale = [float((freeze_mask or {}).get(n, 1.0)) for n in names_g]
-    frozen = [p for p, m in zip(params_g, scale) if m == 0.0]
 
     def train_step(state: TrainState, x, mask, sdm=None):
         subset_idx = sample_subset_index(state.rng, 1, 3)
@@ -222,16 +245,10 @@ def make_train_step(model: nn.Module, disc: nn.Module, cfg: TrainConfig,
         disc.requires_grad_(False)
         try:
             loss, aux = loss_g(x, mask, keep, state.latent_rng, False, sdm)
-            grads_g = _grads(loss, list(params_g))
+            update_g(state.opt_g, loss, lr)
         finally:
             disc.requires_grad_(True)
-        grads_g = [g if m == 1.0 else g * m for g, m in zip(grads_g, scale)]
-        kept = [p.detach().clone() for p in frozen]
-        _step(state.opt_g, params_g, grads_g, lr)
-        with torch.no_grad():
-            for p, old in zip(frozen, kept):
-                p.copy_(old)
-        del loss, grads_g
+        del loss
 
         loss_d = loss_d_fn(aux)
         _step(state.opt_d, params_d, _grads(loss_d, params_d), lr)
@@ -278,3 +295,51 @@ def make_eval_step(model: nn.Module) -> Callable:
         )
 
     return eval_step
+
+
+def pretrain_objective(model: nn.Module, cfg: TrainConfig) -> Callable:
+    """The pretrain loss (x, keep, generator=None, deterministic=False) ->
+    (loss, {loss, recon, kld}): one drawn-subset forward with the seg branch
+    off and BatchNorm on its running statistics (the JAX step's train=False;
+    gradients still flow), MSE recon + beta * the mean over levels of the
+    subset KL."""
+
+    def loss_fn(x, keep, generator=None, deterministic=False):
+        model.eval()
+        out = model(x, keep=keep, seg=False, recon=True, deterministic=deterministic,
+                    generator=generator)
+        recon = l2_loss(out.recon, x)
+        kld = torch.stack([compute_kld_subsets(mu, lv, keep[None])
+                           for mu, lv in zip(out.mu, out.logvar)]).mean()
+        loss = recon + cfg.weight_vae * kld
+        return loss, dict(loss=loss.detach(), recon=recon.detach(), kld=kld.detach())
+
+    return loss_fn
+
+
+def make_pretrain_step(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1,
+                       freeze_mask: Optional[Mapping[str, float]] = None) -> Callable:
+    """Build pretrain_step(state, x) -> (state, metrics): the subset drawn
+    as the train step draws it, `pretrain_objective`, and the masked Adam
+    update of G (D is not touched). Parameters the loss does not reach get a
+    zero gradient, so the weight decay still moves them, as optax's does."""
+    schedule = poly_schedule(cfg.learning_rate, cfg.num_epochs, steps_per_epoch,
+                             cfg.poly_power)
+    loss_fn = pretrain_objective(model, cfg)
+    update_g = _masked_g_update(model, freeze_mask)
+
+    def pretrain_step(state: TrainState, x):
+        keep = subset_mask(sample_subset_index(state.rng, 1, 3), x.device)
+        loss, metrics = loss_fn(x, keep, state.latent_rng)
+        update_g(state.opt_g, loss, schedule(state.step))
+        state.step += 1
+        return state, metrics
+
+    return pretrain_step
+
+
+def freeze_mask_for(model: nn.Module, substrings: Tuple[str, ...]) -> Dict[str, float]:
+    """{parameter name: 0.0 where any substring occurs in the name, else
+    1.0} over `named_parameters()`, for the steps' `freeze_mask`."""
+    return {name: 0.0 if any(s in name for s in substrings) else 1.0
+            for name, _ in model.named_parameters()}

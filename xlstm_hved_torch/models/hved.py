@@ -10,10 +10,11 @@ skip-return chain gates each stream's encoder input, a ViL block mixes the
 bottleneck tokens, and the seg and recon decoders are coupled by DuSE.
 
 Ported: the MVAE presets with the double-conv basic module (XLSTM_HVED and
-its ablations, the U_HVEDConv* family without the ViL decoder), and the
-PatchGAN `Discriminator` of the adversarial train step. The fusion and plain
-multi-stream arms, the ext-resnet and ViL decoder blocks and the
-prefix/suffix split of the hoisted sweep come later.
+its ablations, the U_HVEDConv* family without the ViL decoder), with one
+shared recon stream or one per modality (`shared_recon=False`, the pretrain
+net), and the PatchGAN `Discriminator` of the adversarial train step. The
+fusion and plain multi-stream arms, the ext-resnet and ViL decoder blocks
+and the prefix/suffix split of the hoisted sweep come later.
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ def _check_ported(cfg: HVEDConfig):
         missing.append("single-stream deep levels (fusion_level < num_levels)")
     if cfg.compute_dtype != "float32":
         missing.append(f"compute_dtype={cfg.compute_dtype!r} (the port runs fp32)")
-    for flag in ("recon_decoder", "recon_skip", "shared_recon", "final_sigmoid"):
+    for flag in ("recon_decoder", "recon_skip", "final_sigmoid"):
         if not getattr(cfg, flag):
             missing.append(f"{flag}=False")
     if missing:
@@ -98,18 +99,23 @@ class HVEDFusionNet(nn.Module):
 
         rev_dec = list(reversed(dec_f))
         rev_rec = list(reversed(features_per_level(cfg.rec_f_maps, levels)))
+        # one recon stream shared by the M modalities (M output channels), or
+        # one stream per modality (1 output channel each)
+        self.rec_streams = 1 if cfg.shared_recon else M
+        rec_last = M if cfg.shared_recon else 1
         for j in range(levels - 1):
             self.add_module(f"sdecoder_{j}", DecoderStage(
                 rev_dec[j], rev_dec[j + 1], rev_dec[j + 1], rsm=True, order=order))
-            self.add_module(f"rdecoder_0_{j}", DecoderStage(
-                rev_rec[j], rev_dec[j + 1], rev_rec[j + 1], rsm=False, order=order))
+            for m in range(self.rec_streams):
+                self.add_module(f"rdecoder_{m}_{j}", DecoderStage(
+                    rev_rec[j], rev_dec[j + 1], rev_rec[j + 1], rsm=False, order=order))
             if cfg.seg_recon_decoder and j < _DUSE_LEVELS:
                 self.add_module(f"dusfe_{j}", DuSEAttention(rev_dec[j + 1]))
-        # one recon stream shared by the M modalities: M output channels
-        self.rfinal_0 = conv3d(rev_rec[-1], M, 1)
+        for m in range(self.rec_streams):
+            self.add_module(f"rfinal_{m}", conv3d(rev_rec[-1], rec_last, 1))
         if cfg.seg_recon_decoder:
-            self.sfinal_0 = conv3d(rev_dec[-1], M, 1)
-            self.final_conv = conv3d(M, cfg.out_channels, 1)
+            self.sfinal_0 = conv3d(rev_dec[-1], rec_last, 1)
+            self.final_conv = conv3d(rec_last, cfg.out_channels, 1)
         else:
             self.final_conv = conv3d(rev_dec[-1], cfg.out_channels, 1)
 
@@ -173,27 +179,37 @@ class HVEDFusionNet(nn.Module):
 
         bottleneck, skips = rec_feats[0], rec_feats[1:]
         seg_out = recon_out = None
-        rx = sx = bottleneck
+        sx = bottleneck
+        recons = []
         if cfg.seg_recon_decoder:
             # coupled decode: DuSE mixes the recon and seg branches per level,
-            # so the recon ladder runs whenever seg does
-            for j in range(levels - 1):
-                rx = getattr(self, f"rdecoder_0_{j}")(skips[j], rx)
-                if seg:
-                    sx = getattr(self, f"sdecoder_{j}")(skips[j], sx)
-                    if j < _DUSE_LEVELS:
-                        rx, sx = getattr(self, f"dusfe_{j}")(rx, sx)
+            # so the recon ladder runs whenever seg does. With a recon stream
+            # per modality the shared seg ladder and DuSE run again for each,
+            # from the bottleneck; the seg head reads the last stream's.
+            for m in range(self.rec_streams):
+                rx = sx = bottleneck
+                for j in range(levels - 1):
+                    rx = getattr(self, f"rdecoder_{m}_{j}")(skips[j], rx)
+                    if seg:
+                        sx = getattr(self, f"sdecoder_{j}")(skips[j], sx)
+                        if j < _DUSE_LEVELS:
+                            rx, sx = getattr(self, f"dusfe_{j}")(rx, sx)
+                if recon:
+                    recons.append(getattr(self, f"rfinal_{m}")(rx))
             if seg:
                 seg_out = torch.sigmoid(self.final_conv(self.sfinal_0(sx)))
         else:
-            for j in range(levels - 1 if recon else 0):
-                rx = getattr(self, f"rdecoder_0_{j}")(skips[j], rx)
+            for m in range(self.rec_streams if recon else 0):
+                rx = bottleneck
+                for j in range(levels - 1):
+                    rx = getattr(self, f"rdecoder_{m}_{j}")(skips[j], rx)
+                recons.append(getattr(self, f"rfinal_{m}")(rx))
             for j in range(levels - 1 if seg else 0):
                 sx = getattr(self, f"sdecoder_{j}")(skips[j], sx)
             if seg:
                 seg_out = torch.sigmoid(self.final_conv(sx))
         if recon:
-            recon_out = self.rfinal_0(rx)
+            recon_out = recons[0] if len(recons) == 1 else torch.cat(recons, dim=1)
         return HVEDOutput(seg_out, tuple(mu_list), tuple(logvar_list), recon_out)
 
 
