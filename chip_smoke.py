@@ -14,15 +14,19 @@ plain twin):
              each is three CUDA launches) against its plain PyTorch twin at
              the shapes the main paths give it and on the edge cases (one
              chunk, padding, extreme gates, the e^{-m} branch, DH 8, more
-             blocks than one wave), with its time beside the twin's and its
-             bound; mlstm_fwd's h bitwise equal to mlstm_fwd_states'; then the
+             blocks than one wave), and at the ViL decoder's DH 8, S 32768 and
+             49152 (256 and 384 chunks in one scan), with its time beside the
+             twin's and its bound; mlstm_fwd's h bitwise equal to
+             mlstm_fwd_states'; then the
              differentiable wrapper's h and five gradients against the plain
              chunkwise scan and its autograd at S 2000 and 6144 (the twins
              follow the kernels' phases; the scan is independent of them)
  4. forward  the flagship XLSTM_HVED seg+recon forward at full width (f_maps 4,
              4 levels, fp32, seeded random weights) at 128^3 and 128x192x128:
              finite, seg in [0, 1], one mLSTM kernel launch per forward, and
-             equal within bounds to the same forward through the plain mLSTM
+             equal within bounds to the same forward through the plain mLSTM;
+             the same for the ViL-decoder preset U_HVEDConvXLSTMNet3D (its one
+             ViL in seg decoder stage 0 at S 32768 / 49152, DH 8)
  5. requests the inference path as a user drives it: a 15-subset sliding-
              window sweep with recon over one 128x192x128 volume, patch 128^3
              (2 windows x 15 subsets); kernel launch counts are read around it
@@ -49,6 +53,19 @@ plain twin):
              step); the same command with --num_epochs 2 resumes and runs
              epoch 2 only. Seconds per epoch and per step, the host's share
              of a step (loader waits and batch assembly) and peak memory
+ 8. eval     the evaluation entry point as a user runs it, in phase 7's
+             directory: cli.test.main on --device cuda at the CLI defaults
+             (crop 128x192x128, patch = stride = crop) against phase 7's
+             best_dice checkpoint with --compute_hd95 --eval_recon
+             --save_pred_dir --save_plots_dir: the restored checkpoint, 15
+             subset lines and the average, finite metrics, one label volume
+             in {0, 1, 2, 4} equal to the labels of the sweep run again,
+             3 PNGs, 15 mlstm_fwd launches per volume; the volume's seconds
+             split into spans and the host's share. Then the hoisted sweep
+             against the plain one on a seeded 128x192x128 volume for
+             XLSTM_HVED (level-0 hoist) and U_HVEDConvXLSTMNet3D (every level
+             hoisted): max|d| of seg and recon, seconds (plain, hoisted,
+             hoisted, plain) and peak memory
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Bounds:
@@ -69,7 +86,8 @@ Bounds:
 - the whole forward with the kernel against the forward through the plain
   mLSTM: seg max|d| <= 1e-3 and recon max|d| <= 3.5e-3 (the graph's stacked
   InstanceNorms amplify the kernel's fp32 rounding, the same budget the CPU
-  tests give the port against the JAX model).
+  tests give the port against the JAX model). The same bounds hold the
+  hoisted sweep against the plain one (on the CPU they agree bit for bit).
 - the G gradients through the kernels against those through the plain
   mLSTM, with cuDNN set deterministic for that comparison: per tensor
   max|d| <= 5e-3 * max|ref| + 3e-4 * (the largest gradient of the
@@ -108,6 +126,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -265,7 +284,13 @@ KERNEL_CASES = (("S4096", 1, 4, 4096, 16, "realistic"),
                 ("S4096_denominator", 1, 4, 4096, 16, "denominator"),
                 ("S1000_DH8", 2, 4, 1000, 8, "realistic"),
                 ("S100_one_chunk", 1, 4, 100, 16, "realistic"),      # L = S = 100
-                ("B2_S6144", 2, 4, 6144, 16, "realistic"))          # 384 blocks, > 1 wave
+                ("B2_S6144", 2, 4, 6144, 16, "realistic"),          # 384 blocks, > 1 wave
+                # the ViL decoder of U_HVEDConvXLSTMNet3D: 32^3 / 32x48x32 stage-0 tokens
+                ("S32768_DH8", 1, 4, 32768, 8, "realistic"),
+                ("S49152_DH8", 1, 4, 49152, 8, "realistic"))
+# the cases timed into the kernels line: the main paths' bottleneck shape,
+# and the ViL decoder's under their own keys
+TIMED_CASES = ("S4096", "S32768_DH8", "S49152_DH8")
 # kernel -> (source file, line of the Pallas kernel body it replaces)
 KERNELS = {"mlstm_fwd": ("mlstm_fwd.cu", 40),
            "mlstm_fwd_states": ("mlstm_fwd.cu", 107),
@@ -354,14 +379,16 @@ def check_kernels(dev):
                   f"{dev_ms[name]:.4f} ms) | twin {plain_ms[name]:.4f} ms | bound "
                   f"{bound:.5f} ms by {by} ({costs[name][0]} B, {costs[name][1]} flop)",
                   flush=True)
+            timing = {"ms": ms[name], "device_ms": dev_ms[name], "plain_ms": plain_ms[name],
+                      "bound_ms": bound, "bound_by": by}
             if label == "S4096":  # the shape the main paths give it (128^3 windows)
                 source, line = KERNELS[name]
                 rows[name] = {"name": name, "route": "cuda",
                               "source": f"{SOURCE_ROOT}/{source}",
                               "replaces": f"{REPLACES}:{line}",
-                              "ms": ms[name], "device_ms": dev_ms[name],
-                              "plain_ms": plain_ms[name],
-                              "bound_ms": bound, "bound_by": by, "library_ms": None}
+                              **timing, "library_ms": None}
+            elif label in TIMED_CASES:
+                rows[name][label] = timing
     return rows, worst
 
 
@@ -398,6 +425,53 @@ def check_wrapper_gradients(dev):
         print(f"  mlstm_forward S{S} vs the plain scan: h max|d| {h_err:.3e} scaled "
               f"{h_scaled:.3e}; gradients vs its autograd: scaled dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} digate {errs[3]:.3e} "
               f"dfgate {errs[4]:.3e}", flush=True)
+
+
+def check_forward(dev, gen, name: str):
+    """Phase 4, one preset's seg+recon forward at both crops through the
+    kernel, against the same forward through the plain mLSTM. Returns the
+    kernel model, its ms per crop and its mlstm_fwd launches per forward."""
+    import torch
+    from xlstm_hved_torch.models import find_model_using_name
+    from xlstm_hved_torch.ops import mlstm_cuda
+
+    model = find_model_using_name(name, device=dev, seed=0)
+    plain = find_model_using_name(name, device=dev, seed=0, mlstm_kernel=False)
+    plain.load_state_dict(model.state_dict())
+    keep = torch.ones(4, dtype=torch.bool, device=dev)
+    forward_ms = {}
+    for crop in CROPS:
+        x = torch.rand(1, 4, *crop, generator=gen, device=dev)
+        with torch.inference_mode():
+            mlstm_cuda.run_kernel.launches = 0
+            out = model(x, keep=keep, recon=True, deterministic=True)
+            torch.cuda.synchronize()
+            launches = mlstm_cuda.run_kernel.launches
+            ref = plain(x, keep=keep, recon=True, deterministic=True)
+            torch.cuda.synchronize()
+            if launches != 1:
+                fail(f"{name} forward at {crop}: {launches} mlstm_fwd launches, expected 1")
+            if out.seg.shape != (1, 3, *crop) or out.recon.shape != (1, 4, *crop):
+                fail(f"{name} forward at {crop}: shapes {out.seg.shape}, {out.recon.shape}")
+            if not (torch.isfinite(out.seg).all() and torch.isfinite(out.recon).all()):
+                fail(f"{name} forward at {crop}: non-finite output")
+            if not (0.0 <= float(out.seg.min()) and float(out.seg.max()) <= 1.0):
+                fail(f"{name} forward at {crop}: seg outside [0, 1]")
+            seg_d = float((out.seg - ref.seg).abs().max())
+            rec_d = float((out.recon - ref.recon).abs().max())
+            if seg_d > SEG_ATOL or rec_d > RECON_ATOL:
+                fail(f"{name} forward at {crop}: kernel vs plain mLSTM seg {seg_d:.3e}, "
+                     f"recon {rec_d:.3e} (bounds {SEG_ATOL}, {RECON_ATOL})")
+            run = lambda m=model, x=x: m(x, keep=keep, recon=True, deterministic=True)
+            ms = cuda_ms(run, warmup=2, iters=5)
+            ms_plain = cuda_ms(lambda x=x: plain(x, keep=keep, recon=True,
+                                                 deterministic=True), warmup=1, iters=5)
+        forward_ms["x".join(map(str, crop))] = ms
+        print(f"  {name} forward {crop}: {ms:.2f} ms with the kernel, {ms_plain:.2f} ms "
+              f"with the plain mLSTM | kernel vs plain seg max|d| {seg_d:.3e} "
+              f"recon max|d| {rec_d:.3e} | mlstm_fwd launches {launches}", flush=True)
+        del x, out, ref
+    return model, forward_ms, launches
 
 
 def synthetic_batch(gen, dev, crop):
@@ -563,12 +637,11 @@ def read_csv(path):
         return list(csv.DictReader(f))
 
 
-def check_cli(dev):
-    """Phase 7, the training entry points through their main(argv). Returns
-    the launches of the phase's runs, the launches per pretrain step as
-    measured, and a summary."""
-    import tempfile
-
+def check_cli(dev, root):
+    """Phase 7, the training entry points through their main(argv), writing
+    the dataset and the runs under `root`. Returns the launches of the
+    phase's runs, the launches per pretrain step as measured, and a
+    summary."""
     import torch
     from xlstm_hved_torch.cli import check as check_main
     from xlstm_hved_torch.cli import pretrain as pretrain_main
@@ -635,104 +708,242 @@ def check_cli(dev):
         return rows
 
     report = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
-        t = time.perf_counter()
-        train_dir = write_synthetic_dataset(os.path.join(root, "train"), 2, CLI_SHAPE, seed=0)
-        valid_dir = write_synthetic_dataset(os.path.join(root, "valid"), 1, CLI_SHAPE, seed=1)
-        out = os.path.join(root, "results")
-        print(f"  synthetic dataset, 3 subjects of {'x'.join(map(str, CLI_SHAPE))}: "
-              f"{time.perf_counter() - t:.1f} s", flush=True)
-        common = ["--device", str(dev), "--num_epochs", "1", "--train_dir", train_dir,
-                  "--valid_dir", valid_dir, "--out_dir", out]
+    t = time.perf_counter()
+    train_dir = write_synthetic_dataset(os.path.join(root, "train"), 2, CLI_SHAPE, seed=0)
+    valid_dir = write_synthetic_dataset(os.path.join(root, "valid"), 1, CLI_SHAPE, seed=1)
+    out = os.path.join(root, "results")
+    print(f"  synthetic dataset, 3 subjects of {'x'.join(map(str, CLI_SHAPE))}: "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    common = ["--device", str(dev), "--num_epochs", "1", "--train_dir", train_dir,
+              "--valid_dir", valid_dir, "--out_dir", out]
 
-        # 1. check
-        good, bad = check_main.main(["--data_dir", train_dir, "--decode",
-                                     "--out_file", os.path.join(root, "subjects.txt")])
-        if len(good) != 2 or bad:
-            fail(f"cli.check: {good} OK, {bad} failed")
+    # 1. check
+    good, bad = check_main.main(["--data_dir", train_dir, "--decode",
+                                 "--out_file", os.path.join(root, "subjects.txt")])
+    if len(good) != 2 or bad:
+        fail(f"cli.check: {good} OK, {bad} failed")
 
-        # 2. pretrain
-        summary, launches, peak = run(pretrain_main.main, common)
-        pdir = os.path.join(out, "U_HVEDDuSFEmViLDFNet3D_pretrain")
-        ckpt = CheckpointManager(pdir)
-        if not (ckpt.exists("latest") and ckpt.exists("best_vloss")):
-            fail(f"cli.pretrain: latest / best_vloss missing under {pdir}")
-        csv_rows(os.path.join(pdir, "loss_and_metrics.csv"), 1, "cli.pretrain")
-        steps, items, pretrain_per_step = expect_launches("cli.pretrain", launches, summary,
-                                                          CLI_PER_PRETRAIN_STEP)
-        after = ckpt.restore_raw("latest")[0]["model"]
-        # the pretrain CLI's initial weights, drawn again from its seed
-        args = pretrain_main.base_parser("").parse_args(common)
-        first = find_model_using_name("U_HVEDDuSFEmViLDFNet3D", device=dev, seed=args.seed,
-                                      shared_recon=False)
-        create_train_state(first, Discriminator(f_maps=args.disc_fmaps, kernel=args.disc_kernel),
-                           TrainConfig(), args.seed,
-                           torch.zeros((1, 4, *args.crop_size), device=dev),
-                           init_scheme=args.init_scheme)
-        before = {n: t.detach().cpu() for n, t in first.state_dict().items()}
-        params = dict(first.named_parameters())
-        frozen = [n for n in params if "sdecoder" in n]
-        moved = [n for n in params if not torch.equal(before[n], after[n])]
-        stats = [n for n in before if "running_" in n]
-        if not frozen or set(frozen) & set(moved):
-            fail(f"cli.pretrain: sdecoder parameters moved: {sorted(set(frozen) & set(moved))}")
-        if len(moved) < 0.9 * (len(params) - len(frozen)):
-            fail(f"cli.pretrain: only {len(moved)} of {len(params) - len(frozen)} trainable "
-                 "parameters moved")
-        if any(not torch.equal(before[n], after[n]) for n in stats):
-            fail("cli.pretrain: BatchNorm running statistics moved (eval-mode BatchNorm)")
-        del first, after
-        report["pretrain"] = timing("cli.pretrain", summary, peak)
-        print(f"  cli.pretrain: {steps} steps, {items} validation items, launches "
-              f"{launches}; {len(frozen)} sdecoder tensors bitwise frozen, {len(moved)} of "
-              f"{len(params) - len(frozen)} others moved, {len(stats)} running statistics "
-              "unchanged", flush=True)
+    # 2. pretrain
+    summary, launches, peak = run(pretrain_main.main, common)
+    pdir = os.path.join(out, "U_HVEDDuSFEmViLDFNet3D_pretrain")
+    ckpt = CheckpointManager(pdir)
+    if not (ckpt.exists("latest") and ckpt.exists("best_vloss")):
+        fail(f"cli.pretrain: latest / best_vloss missing under {pdir}")
+    csv_rows(os.path.join(pdir, "loss_and_metrics.csv"), 1, "cli.pretrain")
+    steps, items, pretrain_per_step = expect_launches("cli.pretrain", launches, summary,
+                                                      CLI_PER_PRETRAIN_STEP)
+    after = ckpt.restore_raw("latest")[0]["model"]
+    # the pretrain CLI's initial weights, drawn again from its seed
+    args = pretrain_main.base_parser("").parse_args(common)
+    first = find_model_using_name("U_HVEDDuSFEmViLDFNet3D", device=dev, seed=args.seed,
+                                  shared_recon=False)
+    create_train_state(first, Discriminator(f_maps=args.disc_fmaps, kernel=args.disc_kernel),
+                       TrainConfig(), args.seed,
+                       torch.zeros((1, 4, *args.crop_size), device=dev),
+                       init_scheme=args.init_scheme)
+    before = {n: t.detach().cpu() for n, t in first.state_dict().items()}
+    params = dict(first.named_parameters())
+    frozen = [n for n in params if "sdecoder" in n]
+    moved = [n for n in params if not torch.equal(before[n], after[n])]
+    stats = [n for n in before if "running_" in n]
+    if not frozen or set(frozen) & set(moved):
+        fail(f"cli.pretrain: sdecoder parameters moved: {sorted(set(frozen) & set(moved))}")
+    if len(moved) < 0.9 * (len(params) - len(frozen)):
+        fail(f"cli.pretrain: only {len(moved)} of {len(params) - len(frozen)} trainable "
+             "parameters moved")
+    if any(not torch.equal(before[n], after[n]) for n in stats):
+        fail("cli.pretrain: BatchNorm running statistics moved (eval-mode BatchNorm)")
+    del first, after
+    report["pretrain"] = timing("cli.pretrain", summary, peak)
+    print(f"  cli.pretrain: {steps} steps, {items} validation items, launches "
+          f"{launches}; {len(frozen)} sdecoder tensors bitwise frozen, {len(moved)} of "
+          f"{len(params) - len(frozen)} others moved, {len(stats)} running statistics "
+          "unchanged", flush=True)
 
-        # 3. train from the pretrain weights
-        argv = common + ["--pretrain_weights", pdir]
-        summary, launches, peak = run(train_main.main, argv)
-        donor = ckpt.restore_raw("best_vloss")[0]["model"]
-        target = find_model_using_name("XLSTM_HVED", device="cpu")
-        rule = sum(n in donor and tuple(donor[n].shape) == tuple(p.shape)
-                   for n, p in target.named_parameters())
-        rule = (rule, len(list(target.parameters())) - rule)
-        if summary["surgery"] != rule:
-            fail(f"cli.train: surgery loaded/skipped {summary['surgery']}, the name/shape "
-                 f"rule gives {rule}")
-        tdir = os.path.join(out, "XLSTM_HVED")
-        tckpt = CheckpointManager(tdir)
-        if not all(tckpt.exists(n) for n in ("latest", "best_vloss", "best_dice")):
-            fail(f"cli.train: latest / best_vloss / best_dice missing under {tdir}")
-        csv_path = os.path.join(tdir, "loss_and_metrics.csv")
-        csv_rows(csv_path, 1, "cli.train")
-        steps, items, _ = expect_launches("cli.train", launches, summary, CLI_PER_TRAIN_STEP)
-        report["train"] = timing("cli.train", summary, peak)
-        print(f"  cli.train: surgery loaded {rule[0]}, skipped {rule[1]}; {steps} steps, "
-              f"{items} validation items, launches {launches}", flush=True)
+    # 3. train from the pretrain weights
+    argv = common + ["--pretrain_weights", pdir]
+    summary, launches, peak = run(train_main.main, argv)
+    donor = ckpt.restore_raw("best_vloss")[0]["model"]
+    target = find_model_using_name("XLSTM_HVED", device="cpu")
+    rule = sum(n in donor and tuple(donor[n].shape) == tuple(p.shape)
+               for n, p in target.named_parameters())
+    rule = (rule, len(list(target.parameters())) - rule)
+    if summary["surgery"] != rule:
+        fail(f"cli.train: surgery loaded/skipped {summary['surgery']}, the name/shape "
+             f"rule gives {rule}")
+    tdir = os.path.join(out, "XLSTM_HVED")
+    tckpt = CheckpointManager(tdir)
+    if not all(tckpt.exists(n) for n in ("latest", "best_vloss", "best_dice")):
+        fail(f"cli.train: latest / best_vloss / best_dice missing under {tdir}")
+    csv_path = os.path.join(tdir, "loss_and_metrics.csv")
+    csv_rows(csv_path, 1, "cli.train")
+    steps, items, _ = expect_launches("cli.train", launches, summary, CLI_PER_TRAIN_STEP)
+    report["train"] = timing("cli.train", summary, peak)
+    print(f"  cli.train: surgery loaded {rule[0]}, skipped {rule[1]}; {steps} steps, "
+          f"{items} validation items, launches {launches}", flush=True)
 
-        # 4. the same command, two epochs: resumes, runs epoch 2 only
-        argv[argv.index("--num_epochs") + 1] = "2"
-        summary, launches, peak = run(train_main.main, argv)
-        if [e["epoch"] for e in summary["epochs"]] != [2]:
-            fail(f"cli.train resumed: ran epochs {[e['epoch'] for e in summary['epochs']]}, "
-                 "expected [2]")
-        rows = csv_rows(csv_path, 2, "cli.train resumed")
-        if [int(r["Epoch"]) for r in rows] != [1, 2]:
-            fail(f"cli.train resumed: CSV epochs {[r['Epoch'] for r in rows]}")
-        saved_step = tckpt.restore_raw("latest")[0]["step"]
-        if summary["step"] != 2 * steps or saved_step != 2 * steps:
-            fail(f"cli.train resumed: step {summary['step']}, saved {saved_step}, "
-                 f"expected {2 * steps}")
-        expect_launches("cli.train resumed", launches, summary, CLI_PER_TRAIN_STEP)
-        report["resume"] = timing("cli.train resumed", summary, peak)
-        print(f"  cli.train resumed: epoch 2 only, CSV epochs 1 and 2, step {saved_step}, "
-              f"launches {launches}", flush=True)
+    # 4. the same command, two epochs: resumes, runs epoch 2 only
+    argv[argv.index("--num_epochs") + 1] = "2"
+    summary, launches, peak = run(train_main.main, argv)
+    if [e["epoch"] for e in summary["epochs"]] != [2]:
+        fail(f"cli.train resumed: ran epochs {[e['epoch'] for e in summary['epochs']]}, "
+             "expected [2]")
+    rows = csv_rows(csv_path, 2, "cli.train resumed")
+    if [int(r["Epoch"]) for r in rows] != [1, 2]:
+        fail(f"cli.train resumed: CSV epochs {[r['Epoch'] for r in rows]}")
+    saved_step = tckpt.restore_raw("latest")[0]["step"]
+    if summary["step"] != 2 * steps or saved_step != 2 * steps:
+        fail(f"cli.train resumed: step {summary['step']}, saved {saved_step}, "
+             f"expected {2 * steps}")
+    expect_launches("cli.train resumed", launches, summary, CLI_PER_TRAIN_STEP)
+    report["resume"] = timing("cli.train resumed", summary, peak)
+    print(f"  cli.train resumed: epoch 2 only, CSV epochs 1 and 2, step {saved_step}, "
+          f"launches {launches}", flush=True)
 
     summary = " | ".join(
         f"{k} {v['spans']['train_step'] / v['steps']:.2f} s/step, host share "
         f"{v['host_share']:.3f}, peak {v['peak_gib']:.2f} GiB" for k, v in report.items())
     return {"launches": total, "pretrain_per_step": pretrain_per_step, "report": report,
             "summary": summary}
+
+
+EVAL_PER_VOLUME = {"mlstm_fwd": 15, "mlstm_fwd_states": 0, "mlstm_bwd": 0}
+EVAL_SPANS_DEVICE = ("sweep", "dice", "recon_metrics")   # the rest is the host's
+
+
+def check_eval(dev, gen, root):
+    """Phase 8, the evaluation entry point on phase 7's best_dice checkpoint,
+    then the hoisted sweep against the plain one. Returns the CLI run's
+    launches, the launches per volume and a summary."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from xlstm_hved_torch.cli import test as test_main
+    from xlstm_hved_torch.cli.common import assemble_eval_batch
+    from xlstm_hved_torch.data.brats import BraTSDataset
+    from xlstm_hved_torch.data.nifti import read_nifti
+    from xlstm_hved_torch.engine.checkpoint import CheckpointManager
+    from xlstm_hved_torch.engine.evaluate import (default_apply_fn, label_volume_from_probs,
+                                                  make_hoisted_subset_sweep, make_subset_sweep)
+    from xlstm_hved_torch.models import find_model_using_name
+    from xlstm_hved_torch.ops import mlstm_cuda as mc
+
+    counters = {"mlstm_fwd": mc.run_kernel, "mlstm_fwd_states": mc.run_states_kernel,
+                "mlstm_bwd": mc.run_bwd_kernel}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def read():
+        return {name: c.launches for name, c in counters.items()}
+
+    valid_dir, out = os.path.join(root, "valid"), os.path.join(root, "results")
+    pred_dir, plots_dir = os.path.join(root, "preds"), os.path.join(root, "plots")
+    argv = ["--device", str(dev), "--valid_dir", valid_dir, "--out_dir", out,
+            "--compute_hd95", "--eval_recon", "--save_pred_dir", pred_dir,
+            "--save_plots_dir", plots_dir]
+
+    # 1. the CLI, its launch counts set to 0 just before and read just after
+    buf = io.StringIO()
+    reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = test_main.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    text = buf.getvalue().splitlines()
+    for line in text:
+        if line.startswith(("restored", "WARNING", "volume ", "subset ", "average")):
+            print(f"    {line}", flush=True)
+    n = summary["volumes"]
+    want = {name: n * k for name, k in EVAL_PER_VOLUME.items()}
+    if "restored checkpoint best_dice" not in text:
+        fail("cli.test: no 'restored checkpoint best_dice' line")
+    if (sum(line.startswith("subset ") for line in text) != 15
+            or sum(line.startswith("average") for line in text) != 1 or n != 1):
+        fail(f"cli.test: {n} volumes, expected the 15 subset lines and the average of 1")
+    if launches != want:
+        fail(f"cli.test: {n} volumes launched {launches}, expected {want}")
+    dice = summary["dice"]
+    if not (np.isfinite(dice).all() and (dice >= 0).all() and (dice <= 1).all()):
+        fail(f"cli.test: Dice not finite in [0, 1]: {dice}")
+    for key in ("hd95", "psnr", "ssim"):
+        if not np.isfinite(summary[key]).all():
+            fail(f"cli.test: non-finite {key}: {summary[key]}")
+    preds = sorted(os.listdir(pred_dir))
+    pngs = sorted(os.listdir(plots_dir))
+    if len(preds) != 1 or not preds[0].endswith("-pred.nii.gz") or len(pngs) != 3 * n:
+        fail(f"cli.test: exported {preds} and {pngs}, expected one label volume and 3 PNGs")
+    labels = read_nifti(os.path.join(pred_dir, preds[0]))[0]
+    if not set(np.unique(labels).tolist()) <= {0, 1, 2, 4}:
+        fail(f"cli.test: labels {np.unique(labels)} outside {{0, 1, 2, 4}}")
+    # the labels against the sweep's all-modality subset, run again
+    crop = tuple(test_main.parser().parse_args(argv).crop_size)
+    model = find_model_using_name("XLSTM_HVED", device=dev)
+    model.load_state_dict(
+        CheckpointManager(os.path.join(out, "XLSTM_HVED")).restore_raw("best_dice")[0]["model"])
+    x, _, _ = assemble_eval_batch([BraTSDataset(valid_dir, m_full=True).load(0)], crop, dev)
+    seg_all = make_hoisted_subset_sweep(model, crop, crop)(model, x)[14, 0].cpu().numpy()
+    again = label_volume_from_probs(seg_all)
+    if labels.shape != again.shape or not np.array_equal(labels, again):
+        near = np.abs(seg_all - 0.5).min()
+        fail(f"cli.test: exported labels differ from the sweep's in "
+             f"{int((labels != again).sum())} voxels (closest |p - 0.5| {near:.3e})")
+    vol = summary["per_volume"][0]
+    device_s = sum(vol["spans"][k] for k in EVAL_SPANS_DEVICE)
+    host_share = 1.0 - device_s / vol["seconds"]
+    print(f"  cli.test: {cli_s:.2f} s, volume {vol['seconds']:.2f} s: "
+          + " ".join(f"{k} {v:.3f}" for k, v in vol["spans"].items())
+          + f" s | host share {host_share:.3f} | hd95 share {vol['spans']['hd95'] / vol['seconds']:.3f}"
+          f" | peak {peak:.2f} GiB | launches {launches} | labels {np.unique(labels).tolist()}"
+          f" equal the sweep's again", flush=True)
+    del model, x
+
+    # 2. the hoisted sweep against the plain one, plain / hoisted / hoisted / plain
+    crop = CROPS[1]
+    x = torch.rand(1, 4, *crop, generator=gen, device=dev)
+    lines = []
+    for name in ("XLSTM_HVED", "U_HVEDConvXLSTMNet3D"):
+        model = find_model_using_name(name, device=dev, seed=0)
+        sweeps = {"hoisted": make_hoisted_subset_sweep(model, crop, crop, recon_channels=4),
+                  "plain": make_subset_sweep(default_apply_fn(model, recon=True), crop, crop,
+                                             recon_channels=4)}
+        outs, secs, peaks = {}, {k: [] for k in sweeps}, {}
+        for kind in ("plain", "hoisted", "hoisted", "plain"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset()
+            t = time.perf_counter()
+            result = sweeps[kind](model, x)
+            torch.cuda.synchronize()
+            secs[kind].append(time.perf_counter() - t)
+            peaks[kind] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if read()["mlstm_fwd"] != 15:
+                fail(f"{name} {kind} sweep: {read()} launches, expected 15 mlstm_fwd")
+            outs[kind] = result
+            del result
+        (seg_h, rec_h), (seg_p, rec_p) = outs["hoisted"], outs["plain"]
+        seg_d, rec_d = absmax(seg_h - seg_p), absmax(rec_h - rec_p)
+        if not finite(seg_h, rec_h) or seg_d > SEG_ATOL or rec_d > RECON_ATOL:
+            fail(f"{name}: hoisted vs plain sweep seg max|d| {seg_d:.3e}, recon {rec_d:.3e} "
+                 f"(bounds {SEG_ATOL}, {RECON_ATOL})")
+        line = (f"{name} hoisted {secs['hoisted'][0]:.3f}, {secs['hoisted'][1]:.3f} s "
+                f"(peak {peaks['hoisted']:.2f} GiB) vs plain {secs['plain'][0]:.3f}, "
+                f"{secs['plain'][1]:.3f} s (peak {peaks['plain']:.2f} GiB); max|d| seg "
+                f"{seg_d:.3e} recon {rec_d:.3e}")
+        print(f"  {line}", flush=True)
+        lines.append(line)
+        del model, sweeps, outs, seg_h, rec_h, seg_p, rec_p
+        torch.cuda.empty_cache()
+    return {"launches": launches, "per_volume": launches["mlstm_fwd"] // n,
+            "summary": f"volume {vol['seconds']:.2f} s, host share {host_share:.3f} | "
+                       + " | ".join(lines)}
 
 
 def main():
@@ -776,48 +987,17 @@ def main():
                        f"on {len(KERNEL_CASES)} cases; worst max|d| " +
                        " ".join(f"{n} {e:.3e}" for n, e in worst.items()))
 
-    # ---- 4. flagship forward
+    # ---- 4. forward: the flagship and the ViL-decoder preset
     t0 = time.perf_counter()
-    from xlstm_hved_torch.models import find_model_using_name
-
-    model = find_model_using_name("XLSTM_HVED", device=dev, seed=0)
-    plain = find_model_using_name("XLSTM_HVED", device=dev, seed=0, mlstm_kernel=False)
-    plain.load_state_dict(model.state_dict())
+    model, forward_ms, _ = check_forward(dev, gen, "XLSTM_HVED")
+    # its own generator: the later phases' seeded inputs stay as they were
+    _, vil_ms, vil_launches = check_forward(dev, torch.Generator(device=dev).manual_seed(3),
+                                            "U_HVEDConvXLSTMNet3D")
+    rows["mlstm_fwd"]["launches_per_vil_decoder_forward"] = vil_launches
+    torch.cuda.empty_cache()
+    done("forward", t0, " ".join(f"{c} {m:.2f} ms" for c, m in forward_ms.items())
+         + " | U_HVEDConvXLSTMNet3D " + " ".join(f"{c} {m:.2f} ms" for c, m in vil_ms.items()))
     keep = torch.ones(4, dtype=torch.bool, device=dev)
-    forward_ms = {}
-    for crop in CROPS:
-        x = torch.rand(1, 4, *crop, generator=gen, device=dev)
-        with torch.inference_mode():
-            mlstm_cuda.run_kernel.launches = 0
-            out = model(x, keep=keep, recon=True, deterministic=True)
-            torch.cuda.synchronize()
-            launches = mlstm_cuda.run_kernel.launches
-            ref = plain(x, keep=keep, recon=True, deterministic=True)
-            torch.cuda.synchronize()
-            if launches != 1:
-                fail(f"forward at {crop}: {launches} mlstm_fwd launches, expected 1")
-            if out.seg.shape != (1, 3, *crop) or out.recon.shape != (1, 4, *crop):
-                fail(f"forward at {crop}: shapes {out.seg.shape}, {out.recon.shape}")
-            if not (torch.isfinite(out.seg).all() and torch.isfinite(out.recon).all()):
-                fail(f"forward at {crop}: non-finite output")
-            if not (0.0 <= float(out.seg.min()) and float(out.seg.max()) <= 1.0):
-                fail(f"forward at {crop}: seg outside [0, 1]")
-            seg_d = float((out.seg - ref.seg).abs().max())
-            rec_d = float((out.recon - ref.recon).abs().max())
-            if seg_d > SEG_ATOL or rec_d > RECON_ATOL:
-                fail(f"forward at {crop}: kernel vs plain mLSTM seg {seg_d:.3e}, "
-                     f"recon {rec_d:.3e} (bounds {SEG_ATOL}, {RECON_ATOL})")
-            run = lambda m=model, x=x: m(x, keep=keep, recon=True, deterministic=True)
-            ms = cuda_ms(run, warmup=2, iters=5)
-            ms_plain = cuda_ms(lambda x=x: plain(x, keep=keep, recon=True,
-                                                 deterministic=True), warmup=1, iters=5)
-        forward_ms["x".join(map(str, crop))] = ms
-        print(f"  forward {crop}: {ms:.2f} ms with the kernel, {ms_plain:.2f} ms "
-              f"with the plain mLSTM | kernel vs plain seg max|d| {seg_d:.3e} "
-              f"recon max|d| {rec_d:.3e}", flush=True)
-        del x, out, ref
-    del plain
-    done("forward", t0, " ".join(f"{c} {m:.2f} ms" for c, m in forward_ms.items()))
 
     # ---- 5. requests: the main path
     t0 = time.perf_counter()
@@ -867,14 +1047,24 @@ def main():
         rows[name]["launches"] = train["launches"][name]
     done("train", t0, train["summary"])
 
-    # ---- 7. cli: the training entry points
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    cli = check_cli(dev)
-    for name in ("mlstm_fwd", "mlstm_fwd_states", "mlstm_bwd"):
-        rows[name]["launches_cli"] = cli["launches"][name]
-        rows[name]["launches_per_pretrain_step"] = cli["pretrain_per_step"][name]
-    done("cli", t0, cli["summary"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        # ---- 7. cli: the training entry points
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        cli = check_cli(dev, root)
+        for name in ("mlstm_fwd", "mlstm_fwd_states", "mlstm_bwd"):
+            rows[name]["launches_cli"] = cli["launches"][name]
+            rows[name]["launches_per_pretrain_step"] = cli["pretrain_per_step"][name]
+        done("cli", t0, cli["summary"])
+
+        # ---- 8. eval: the evaluation entry point, on phase 7's checkpoint
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        ev = check_eval(dev, torch.Generator(device=dev).manual_seed(4), root)
+        for name in ("mlstm_fwd", "mlstm_fwd_states", "mlstm_bwd"):
+            rows[name]["launches_eval_cli"] = ev["launches"][name]
+        rows["mlstm_fwd"]["launches_per_eval_volume"] = ev["per_volume"]
+        done("eval", t0, ev["summary"])
 
     for name, row in rows.items():
         row["max_abs_err"] = worst[name]

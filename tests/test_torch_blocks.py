@@ -12,11 +12,12 @@ from _torch_port import load_port, max_abs, ncdhw, ndhwc, random_variables, to_j
 from xlstm_hved_tpu.nn import blocks as jb
 from xlstm_hved_tpu.nn.dusfe import DuSEAttention as JDuSE
 from xlstm_hved_tpu.nn.skr import SkrGate as JSkrGate
+from xlstm_hved_tpu.nn.vil import DoubleConvViL as JDoubleConvViL
 from xlstm_hved_tpu.nn.vil import ViLLayer3D as JViLLayer3D
 from xlstm_hved_torch.nn import blocks as tb
 from xlstm_hved_torch.nn.dusfe import DuSEAttention
 from xlstm_hved_torch.nn.skr import SkrGate
-from xlstm_hved_torch.nn.vil import ViLLayer3D
+from xlstm_hved_torch.nn.vil import DoubleConvViL, DropPath, ViLBlock, ViLLayer3D
 
 ATOL = 1e-5
 
@@ -147,3 +148,65 @@ def test_vil_layer3d_matches_jax(spatial, chunk):
     x = _rand(15, 1, *spatial, 32)
     _compare(JViLLayer3D(32, chunk_size=chunk, use_pallas=False),
              ViLLayer3D(32, chunk_size=chunk), [x])
+
+
+# The ViL at head width 8 normalises each head over 8 values, which amplifies
+# fp32 rounding: both fp32 runs (JAX's and the port's) lie 1.8e-5 to 5.1e-5
+# from an fp64 run of the port on these two cases (outputs up to 3.2 and 4.2)
+VIL_DH8_ATOL = 1e-4
+
+
+def test_double_conv_vil_matches_jax():
+    """The ViL decoder block at U_HVEDConvXLSTMNet3D's stage-0 width: a
+    decoder DoubleConv to 16 channels, LeakyReLU, a ViL of 4 heads of width
+    8 over 4 * 6 * 5 tokens (S not a multiple of the chunk)."""
+    x = _rand(17, 1, 4, 6, 5, 24)
+    _compare(JDoubleConvViL(16, order="ilc"), DoubleConvViL(24, 16, "ilc"), [x],
+             jkw={"train": False}, atol=VIL_DH8_ATOL)
+
+
+def test_decoder_stage_with_the_vil_block_matches_jax():
+    skip = _rand(18, 1, 8, 8, 8, 16)
+    x = _rand(19, 1, 4, 4, 4, 32)
+    _compare(jb.DecoderStage(16, basic_module="double_conv_vil", order="ilc", rsm=True,
+                             mvae=True),
+             tb.DecoderStage(32, 16, 16, rsm=True, order="ilc",
+                             basic_module="double_conv_vil"), [skip, x], atol=VIL_DH8_ATOL)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tb.DecoderStage(32, 16, 16, basic_module="ext_resnet")
+
+
+def test_drop_path_is_the_identity_residual_without_a_generator():
+    x, res = torch.randn(6, 5, 3), torch.randn(6, 5, 3)
+    torch.testing.assert_close(DropPath(0.5)(x, res), x + res, rtol=0, atol=0)
+    torch.testing.assert_close(DropPath(0.0)(x, res, torch.Generator()), x + res,
+                               rtol=0, atol=0)
+    assert not list(DropPath(0.5).parameters())
+
+
+def test_drop_path_drops_whole_samples_from_the_generator():
+    """Per sample: x + residual / keep, or x alone; the same generator state
+    draws the same mask; about `keep` of the samples survive."""
+    x, res = torch.randn(4000, 3), torch.ones(4000, 3)
+    got = DropPath(0.25)(x, res, torch.Generator().manual_seed(0))
+    delta = got - x
+    kept = delta[:, 0] > 0.5
+    torch.testing.assert_close(delta[kept], torch.full_like(delta[kept], 1 / 0.75))
+    torch.testing.assert_close(delta[~kept], torch.zeros_like(delta[~kept]))
+    assert abs(kept.float().mean().item() - 0.75) < 0.03
+    again = DropPath(0.25)(x, res, torch.Generator().manual_seed(0))
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+    no_scale = DropPath(0.25, scale_by_keep=False)(x, res, torch.Generator().manual_seed(0))
+    torch.testing.assert_close(no_scale - x, kept[:, None].float().expand(-1, 3))
+
+
+def test_vil_block_drop_path_takes_the_generator():
+    block = ViLBlock(8, drop_path=0.5).eval()
+    x = torch.randn(3, 10, 8)
+    with torch.no_grad():
+        plain = x + block.layer(block.norm(x))
+        torch.testing.assert_close(block(x), plain, rtol=0, atol=0)
+        dropped = block(x, torch.Generator().manual_seed(1))
+    for b in range(3):
+        assert torch.allclose(dropped[b], x[b]) or torch.allclose(
+            dropped[b], x[b] + 2.0 * (plain[b] - x[b]), atol=1e-6)

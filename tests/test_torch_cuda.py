@@ -1,8 +1,9 @@
 """PyTorch port on the card: the CUDA mLSTM kernels (forward, states-saving
-forward, backward) against their plain twins, the differentiable wrapper
-against autograd through the plain scan, and the model's kernel path (the
-forward, the train step, the pretrain step) against its plain path. These
-need a CUDA
+forward, backward) against their plain twins, at the ViL decoder's DH 8 and
+S 32768 too, the differentiable wrapper against autograd through the plain
+scan, the model's kernel path (the forward, the train step, the pretrain
+step) against its plain path, and the hoisted 15-subset sweep against the
+plain one. These need a CUDA
 device and nvcc; without a card they skip. Run them on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from xlstm_hved_torch.config import TrainConfig
+from xlstm_hved_torch.engine.evaluate import (default_apply_fn, make_hoisted_subset_sweep,
+                                              make_subset_sweep)
 from xlstm_hved_torch.engine.train import (create_train_state, freeze_mask_for,
                                            make_pretrain_step, make_train_step,
                                            pretrain_objective)
@@ -49,10 +52,12 @@ def _scaled_err(out, ref):
     return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
-# (1, 4, 100) is one chunk (L = S); (2, 4, 6144) is 384 blocks, more than one wave
+# (1, 4, 100) is one chunk (L = S); (2, 4, 6144) is 384 blocks, more than one wave;
+# (1, 4, 32768, 8) is the ViL decoder of U_HVEDConvXLSTMNet3D at 128^3, 256 chunks
 @pytest.mark.parametrize("B,NH,S,DH,L", [(1, 4, 4096, 16, 128), (1, 4, 6144, 16, 128),
                                          (2, 4, 1000, 8, 128), (1, 2, 97, 16, 32),
-                                         (1, 4, 100, 16, 128), (2, 4, 6144, 16, 128)])
+                                         (1, 4, 100, 16, 128), (2, 4, 6144, 16, 128),
+                                         (1, 4, 32768, 8, 128)])
 def test_kernel_matches_twin(dev, B, NH, S, DH, L):
     prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH), L)
     out = mlstm_cuda.run_kernel(*prepared)
@@ -82,7 +87,8 @@ def test_mlstm_forward_matches_chunkwise_and_counts(dev):
                                               (1, 2, 200, 8, 64, "denominator"),
                                               (2, 2, 97, 16, 32, "realistic"),
                                               (1, 4, 100, 16, 128, "realistic"),
-                                              (2, 4, 6144, 16, 128, "realistic")])
+                                              (2, 4, 6144, 16, 128, "realistic"),
+                                              (1, 4, 32768, 8, 128, "realistic")])
 def test_states_and_backward_kernels_match_twins(dev, B, NH, S, DH, L, case):
     prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH, case=case), L)
     states = mlstm_cuda.run_states_kernel(*prepared)
@@ -197,3 +203,23 @@ def test_pretrain_step_through_the_kernels_matches_plain(dev):
     assert state.step == 1 and torch.isfinite(metrics["loss"])
     assert all(torch.equal(p, before[n]) for n, p in model.named_parameters()
                if freeze[n] == 0.0)
+
+
+@pytest.mark.parametrize("name", ["XLSTM_HVED", "U_HVEDConvXLSTMNet3D"])
+def test_hoisted_sweep_matches_plain_sweep(dev, name):
+    """Level-0 hoist (skip-return) and the full-encoder hoist, two windows
+    along D, within chip_smoke.py's forward bounds; 15 mlstm_fwd launches per
+    window in both sweeps."""
+    model = find_model_using_name(name, device=dev, seed=5)
+    x = torch.rand(1, 4, 48, 32, 32, generator=torch.Generator(device=dev).manual_seed(6),
+                   device=dev)
+    patch = (32, 32, 32)
+    before = mlstm_cuda.run_kernel.launches
+    seg_h, rec_h = make_hoisted_subset_sweep(model, patch, recon_channels=4)(model, x)
+    torch.cuda.synchronize()
+    assert mlstm_cuda.run_kernel.launches - before == 2 * 15
+    seg_p, rec_p = make_subset_sweep(default_apply_fn(model, recon=True), patch,
+                                     recon_channels=4)(model, x)
+    assert seg_h.shape == (15, 1, 3, 48, 32, 32) and torch.isfinite(rec_h).all()
+    assert float((seg_h - seg_p).abs().max()) <= 1e-3
+    assert float((rec_h - rec_p).abs().max()) <= 3.5e-3

@@ -10,6 +10,8 @@ Stacked InstanceNorms condition this graph at about 1e3, so the mean error
 is the tight signal. Against an fp64 run of the port (same report), the
 port's fp32 forward is about ten times closer than the JAX CPU forward, so
 these errors are mostly the JAX side's rounding."""
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,11 +31,11 @@ def _run_port(tm, x, keep, **kw):
         return tm(ncdhw(x), keep=torch.tensor(keep), recon=True, deterministic=True, **kw)
 
 
-def _assert_close(out, ref):
+def _assert_close(out, ref, seg_max=1e-3, seg_mean=2e-5):
     seg_d = np.abs(ndhwc(out.seg) - np.asarray(ref.seg))
     rec_d = np.abs(ndhwc(out.recon) - np.asarray(ref.recon))
-    assert seg_d.max() < 1e-3, seg_d.max()
-    assert seg_d.mean() < 2e-5, seg_d.mean()
+    assert seg_d.max() < seg_max, seg_d.max()
+    assert seg_d.mean() < seg_mean, seg_d.mean()
     assert rec_d.max() < 3.5e-3, rec_d.max()
     assert rec_d.mean() < 1e-4, rec_d.mean()
     assert len(out.mu) == len(ref.mu) == 4
@@ -108,7 +110,37 @@ def test_seg_and_recon_flags(flagship):
     assert float(out.seg.min()) >= 0.0 and float(out.seg.max()) <= 1.0
 
 
-@pytest.mark.parametrize("name", ["U_HVEDNet3D", "FusionUNet3D", "U_HVEDConvXLSTMNet3D"])
+@pytest.fixture(scope="module")
+def vil_decoder():
+    return model_pair("U_HVEDConvXLSTMNet3D", seed=2)
+
+
+@pytest.mark.parametrize("subset", [0, 5, 11, 14])
+def test_vil_decoder_preset_matches_jax(vil_decoder, subset):
+    """U_HVEDConvXLSTMNet3D: seg decoder stage 0 is DoubleConvViL (a ViL over
+    the 8^3 stage-0 tokens at 32^3, dim 16, 4 heads of width 8); the JAX
+    tree loaded strictly through params_from_jax (model_pair).
+
+    The per-head out-norm over 8 values amplifies fp32 rounding in the seg
+    head: against an fp64 run of the port, the JAX CPU forward's seg is off
+    by up to 2.0e-3 max / 3.6e-5 mean (subset 11), the port's fp32 by at most
+    2.0e-4 / 4.6e-6. So seg is held to JAX at twice JAX's own error (4e-3 /
+    8e-5) and to the fp64 port at the flagship's bounds (1e-3 / 2e-5); recon
+    and the experts at the flagship's bounds."""
+    tm, fwd, jvars, x = vil_decoder
+    assert "sdecoder_0.basic.vil.vil.layer.mlstm_cell.igate.weight" in tm.state_dict()
+    keep = SUBSET_MASKS[subset]
+    out = _run_port(tm, x, keep)
+    _assert_close(out, fwd(jvars, jnp.asarray(x), jnp.asarray(keep)), seg_max=4e-3,
+                  seg_mean=8e-5)
+    with torch.no_grad():
+        ref64 = copy.deepcopy(tm).double()(ncdhw(x).double(), keep=torch.tensor(keep),
+                                           deterministic=True)
+    seg_d = (out.seg.double() - ref64.seg).abs()
+    assert seg_d.max() < 1e-3 and seg_d.mean() < 2e-5, (seg_d.max(), seg_d.mean())
+
+
+@pytest.mark.parametrize("name", ["U_HVEDNet3D", "FusionUNet3D"])
 def test_unported_presets_raise(name):
     with pytest.raises(NotImplementedError, match="not ported"):
         find_model_using_name(name, device="cpu")

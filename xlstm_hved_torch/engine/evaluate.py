@@ -1,12 +1,20 @@
 """Sliding-window whole-volume inference and the 15-subset sweep
-(counterpart of the plain sweep in `xlstm_hved_tpu/engine/evaluate.py`).
+(counterpart of `xlstm_hved_tpu/engine/evaluate.py`).
 
 Windows tile the volume on a static origin grid whose last window along each
 axis ends at the border; overlapping predictions are averaged. Dropped
 modalities are zeroed in the input and the model also receives the keep
-mask. Volumes are (B, M, D, H, W); the sweep returns seg (15, B, C, D, H, W)
-and, with recon channels, recon (15, B, R, D, H, W). The hoisted and sharded
-sweeps of the JAX engine come in a later slice.
+mask. Volumes are (B, M, D, H, W); the sweeps return seg (15, B, C, D, H, W)
+and, with recon channels, recon (15, B, R, D, H, W), subsets in the order of
+SUBSET_MASKS.
+
+- `make_subset_sweep`: the sliding window once per subset, or `subset_chunk`
+  subsets at a time as one batch of per-instance keep-masks.
+- `make_hoisted_subset_sweep`: per window, the model's subset-invariant
+  prefix once on the full input, then 15 suffixes (`models/hved.py`); it
+  equals the plain sweep.
+The JAX engine's sweep sharded over a device mesh waits for the port's data
+parallelism.
 """
 from __future__ import annotations
 
@@ -44,7 +52,7 @@ def make_sliding_window(apply_fn: Callable, patch: Sequence[int],
     overlapping windows.
 
     apply_fn(model, x_patch, keep) returns (seg (B, out_channels, *patch),
-    recon (B, recon_channels, *patch) or None).
+    recon (B, recon_channels, *patch) or None). keep is (4,) or (B, 4).
     """
     patch = tuple(patch)
     stride = tuple(stride) if stride is not None else patch
@@ -54,7 +62,7 @@ def make_sliding_window(apply_fn: Callable, patch: Sequence[int],
         B, M = x.shape[:2]
         vol = tuple(x.shape[2:])
         keep = torch.as_tensor(keep, device=x.device).bool()
-        x = x * keep.reshape(1, M, 1, 1, 1).to(x.dtype)
+        x = x * keep.reshape(-1, M, 1, 1, 1).to(x.dtype)
         seg_sum = x.new_zeros((B, out_channels, *vol), dtype=torch.float32)
         rec_sum = (x.new_zeros((B, recon_channels, *vol), dtype=torch.float32)
                    if recon_channels else None)
@@ -74,22 +82,87 @@ def make_sliding_window(apply_fn: Callable, patch: Sequence[int],
 
 def make_subset_sweep(apply_fn: Callable, patch: Sequence[int],
                       stride: Optional[Sequence[int]] = None,
-                      out_channels: int = 3, recon_channels: int = 0):
-    """sweep(model, x) runs the sliding window once per modality subset, in
+                      out_channels: int = 3, recon_channels: int = 0,
+                      subset_chunk: int = 1):
+    """sweep(model, x) runs the sliding window over the modality subsets, in
     the order of SUBSET_MASKS, and returns seg (15, B, out_channels, ...)
-    and, when recon_channels > 0, recon (15, B, recon_channels, ...)."""
+    and, when recon_channels > 0, recon (15, B, recon_channels, ...).
+
+    `subset_chunk` subsets run at a time, as one batch of chunk * B rows
+    with a keep-mask per row; the subset table is padded to a multiple of
+    the chunk with repeats of its last row, whose outputs are dropped."""
     predict = make_sliding_window(apply_fn, patch, stride, out_channels,
                                   recon_channels)
+    n_subsets = len(SUBSET_MASKS)
+    if not 1 <= subset_chunk <= n_subsets:
+        raise ValueError(f"subset_chunk must be in [1, {n_subsets}], got {subset_chunk}")
+    n_pad = (-n_subsets) % subset_chunk
+    table = np.concatenate([SUBSET_MASKS, np.repeat(SUBSET_MASKS[-1:], n_pad, axis=0)])
 
     def sweep(model, x):
+        B = x.shape[0]
         segs, recs = [], []
-        for keep in SUBSET_MASKS:
-            seg, rec = predict(model, x, torch.tensor(keep))
-            segs.append(seg)
-            recs.append(rec)
+        for c in range(0, len(table), subset_chunk):
+            keep = torch.from_numpy(table[c:c + subset_chunk]).to(x.device)
+            if subset_chunk > 1:  # row i is subset c + i // B of batch item i % B
+                seg, rec = predict(model, x.repeat(subset_chunk, 1, 1, 1, 1),
+                                   keep.repeat_interleave(B, dim=0))
+            else:
+                seg, rec = predict(model, x, keep[0])
+            segs.append(seg.reshape(-1, B, *seg.shape[1:]))
+            if rec is not None:
+                recs.append(rec.reshape(-1, B, *rec.shape[1:]))
         if not recon_channels:
-            return torch.stack(segs)
-        return torch.stack(segs), torch.stack(recs)
+            return torch.cat(segs)[:n_subsets]
+        return torch.cat(segs)[:n_subsets], torch.cat(recs)[:n_subsets]
+
+    return sweep
+
+
+def make_hoisted_subset_sweep(model, patch: Sequence[int],
+                              stride: Optional[Sequence[int]] = None,
+                              out_channels: int = 3, recon_channels: int = 0):
+    """The 15-subset sweep with the subset-invariant forward prefix hoisted
+    out of the subset loop: per window, one `mode="prefix"` pass on the full
+    window, then one `mode="suffix"` pass per subset on the masked window,
+    accumulated as `make_sliding_window` accumulates. `model` is an
+    HVEDFusionNet; deterministic latents, no gradient.
+
+    Returns sweep(model, x) -> seg (15, B, out_channels, ...) and, when
+    recon_channels > 0, recon (15, B, recon_channels, ...)."""
+    del model  # the JAX engine's signature; the network is sweep's argument
+    patch = tuple(patch)
+    stride = tuple(stride) if stride is not None else patch
+    recon = recon_channels > 0
+    keeps = torch.tensor(SUBSET_MASKS)
+
+    @torch.no_grad()
+    def sweep(net, x):
+        n = len(SUBSET_MASKS)
+        B, M = x.shape[:2]
+        vol = tuple(x.shape[2:])
+        masks = keeps.to(x.device)
+        seg_sum = x.new_zeros((n, B, out_channels, *vol), dtype=torch.float32)
+        rec_sum = (x.new_zeros((n, B, recon_channels, *vol), dtype=torch.float32)
+                   if recon else None)
+        count = x.new_zeros((1, 1, *vol), dtype=torch.float32)
+        for d, h, w in origin_grid(vol, patch, stride).tolist():
+            win = (slice(None), slice(None), slice(d, d + patch[0]),
+                   slice(h, h + patch[1]), slice(w, w + patch[2]))
+            crop = x[win]
+            pref = net(crop, mode="prefix", deterministic=True)
+            for s in range(n):
+                crop_m = crop * masks[s].reshape(1, M, 1, 1, 1).to(crop.dtype)
+                out = net(crop_m, keep=masks[s], mode="suffix", prefix=pref,
+                          recon=recon, deterministic=True)
+                seg_sum[s][win] += out.seg.float()
+                if recon:
+                    rec_sum[s][win] += out.recon.float()
+            del pref
+            count[win] += 1.0
+        if not recon:
+            return seg_sum / count
+        return seg_sum / count, rec_sum / count
 
     return sweep
 

@@ -9,12 +9,23 @@ masked product of experts over the keep-mask; the sample (or the mean when
 skip-return chain gates each stream's encoder input, a ViL block mixes the
 bottleneck tokens, and the seg and recon decoders are coupled by DuSE.
 
+`mode="prefix"` / `"suffix"` split the forward at the subset-invariance
+boundary for the hoisted 15-subset sweep (`engine/evaluate.py`): a dropped
+stream's features reach only its own expert, which the product of experts
+weights by 0 (`ops/poe.py`), and the per-stream convs are grouped, so the
+kept streams see the same values whether the dropped ones were zeroed or
+not. `prefix(x_full)` runs the hoisted levels' encoders and DRBs once on
+the full input; `suffix(x_masked, keep, prefix)` runs their keep-dependent
+latent tails and the rest. The hoist is every level without skip-return and
+level 0 with it: the skr gate chain starts from the masked input
+(`x0_init`) and gates every stream from level 1 on.
+
 Ported: the MVAE presets with the double-conv basic module (XLSTM_HVED and
-its ablations, the U_HVEDConv* family without the ViL decoder), with one
-shared recon stream or one per modality (`shared_recon=False`, the pretrain
-net), and the PatchGAN `Discriminator` of the adversarial train step. The
-fusion and plain multi-stream arms, the ext-resnet and ViL decoder blocks
-and the prefix/suffix split of the hoisted sweep come later.
+its ablations, the U_HVEDConv* family, the ViL decoder block of
+U_HVEDConvXLSTMNet3D included), with one shared recon stream or one per
+modality (`shared_recon=False`, the pretrain net), and the PatchGAN
+`Discriminator` of the adversarial train step. The fusion and plain
+multi-stream arms and the ext-resnet blocks come later.
 """
 from __future__ import annotations
 
@@ -46,6 +57,19 @@ class HVEDOutput(NamedTuple):
     recon: Optional[torch.Tensor]        # (B, 4, D, H, W)
 
 
+class HoistedPrefix(NamedTuple):
+    """What `mode="prefix"` returns: the expert stacks of the hoisted levels
+    and, when deeper levels remain (skip-return models hoist level 0 only),
+    the folded stream tensor at the hoist boundary."""
+
+    mu: Tuple[torch.Tensor, ...]
+    logvar: Tuple[torch.Tensor, ...]
+    xs: Optional[torch.Tensor]
+
+
+MODES = ("full", "prefix", "suffix")
+
+
 def _check_ported(cfg: HVEDConfig):
     missing = []
     if not cfg.mvae or cfg.fusion:
@@ -54,8 +78,6 @@ def _check_ported(cfg: HVEDConfig):
         missing.append("mvae_reduction=False")
     if cfg.basic_module != "double_conv":
         missing.append(f"basic_module={cfg.basic_module!r}")
-    if cfg.vil_decoder:
-        missing.append("the ViL decoder block")
     if cfg.fusion_level < cfg.num_levels:
         missing.append("single-stream deep levels (fusion_level < num_levels)")
     if cfg.compute_dtype != "float32":
@@ -104,8 +126,11 @@ class HVEDFusionNet(nn.Module):
         self.rec_streams = 1 if cfg.shared_recon else M
         rec_last = M if cfg.shared_recon else 1
         for j in range(levels - 1):
+            # the ViL decoder block sits in seg decoder stage 0 only
+            basic = "double_conv_vil" if cfg.vil_decoder and j == 0 else "double_conv"
             self.add_module(f"sdecoder_{j}", DecoderStage(
-                rev_dec[j], rev_dec[j + 1], rev_dec[j + 1], rsm=True, order=order))
+                rev_dec[j], rev_dec[j + 1], rev_dec[j + 1], rsm=True, order=order,
+                basic_module=basic, mlstm_kernel=cfg.mlstm_kernel))
             for m in range(self.rec_streams):
                 self.add_module(f"rdecoder_{m}_{j}", DecoderStage(
                     rev_rec[j], rev_dec[j + 1], rev_rec[j + 1], rsm=False, order=order))
@@ -122,12 +147,17 @@ class HVEDFusionNet(nn.Module):
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None, *,
                 instance_missing: bool = False, seg: bool = True,
                 recon: bool = False, deterministic: bool = False,
-                generator: Optional[torch.Generator] = None) -> HVEDOutput:
+                generator: Optional[torch.Generator] = None, mode: str = "full",
+                prefix: Optional[HoistedPrefix] = None):
         """x: (B, M, D, H, W). keep: (4,) or (B, 4) bool, True = present; by
         default all present, or inferred per instance from all-zero channels
         when `instance_missing`. Sampling (deterministic=False) draws its
         noise from `generator`. BatchNorm follows the module's train/eval
-        mode."""
+        mode.
+
+        mode "full" returns an HVEDOutput; "prefix" the HoistedPrefix of the
+        full input x; "suffix" the HVEDOutput of the subset-masked input x
+        and its keep-mask, resuming from `prefix` (module docstring)."""
         cfg = self.cfg
         M = cfg.multi_stream
         B = x.shape[0]
@@ -137,6 +167,17 @@ class HVEDFusionNet(nn.Module):
             raise ValueError(
                 f"spatial dims {tuple(x.shape[2:])} must be divisible by "
                 f"2^num_levels = {div} for the MVAE x2-upsample path")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode != "full":
+            if not cfg.mvae or cfg.fusion:
+                raise ValueError(
+                    "hoisted prefix/suffix modes require an MVAE model (the fusion "
+                    "and plain multi-stream arms read unmasked stream features)")
+            if mode == "suffix" and prefix is None:
+                raise ValueError("mode='suffix' needs the HoistedPrefix")
+        # levels whose encoder and DRB are subset-invariant
+        hoist = 0 if mode == "full" else (1 if cfg.skip_return else levels)
         if keep is None:
             if instance_missing:
                 keep = x.abs().sum(dim=(2, 3, 4)) != 0
@@ -147,21 +188,29 @@ class HVEDFusionNet(nn.Module):
         lat = cfg.mvae_latents
 
         x = x.to(self.init_blocks.weight.dtype)
-        xs = self.init_blocks(x)
+        xs = prefix.xs if mode == "suffix" else self.init_blocks(x)
         mu_list, logvar_list, rec_feats = [], [], []
         skr_feat = None
         for lv in range(levels):
-            if cfg.skip_return and skr_feat is not None:
-                gate = getattr(self, f"skr_att_{lv}")(skr_feat)
-                xs = gate * xs + xs
-            xs = getattr(self, f"encoders_{lv}")(xs)
+            if mode == "suffix" and lv < hoist:
+                mu_e, logvar_e = prefix.mu[lv], prefix.logvar[lv]
+            else:
+                if cfg.skip_return and skr_feat is not None:
+                    gate = getattr(self, f"skr_att_{lv}")(skr_feat)
+                    xs = gate * xs + xs
+                xs = getattr(self, f"encoders_{lv}")(xs)
 
-            # folded (B, M*2L, ...) -> (B, M, 2L, ...): mu first, logvar second
-            drb = getattr(self, f"drb_{lv}")(xs)
-            drb = drb.reshape(B, M, 2 * lat[lv], *drb.shape[2:])
-            mu_e, logvar_e = stack_prior(drb[:, :, :lat[lv]], drb[:, :, lat[lv]:])
+                # folded (B, M*2L, ...) -> (B, M, 2L, ...): mu first, logvar second
+                drb = getattr(self, f"drb_{lv}")(xs)
+                drb = drb.reshape(B, M, 2 * lat[lv], *drb.shape[2:])
+                mu_e, logvar_e = stack_prior(drb[:, :, :lat[lv]], drb[:, :, lat[lv]:])
             mu_list.append(mu_e)
             logvar_list.append(logvar_e)
+            if mode == "prefix":
+                if lv == hoist - 1:
+                    return HoistedPrefix(tuple(mu_list), tuple(logvar_list),
+                                         xs if hoist < levels else None)
+                continue
 
             pd_mu, pd_logvar = product_of_experts(mu_e, logvar_e, keep_b)
             z = reparametrize(pd_mu, pd_logvar, deterministic, generator)

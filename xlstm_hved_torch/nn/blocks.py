@@ -9,7 +9,7 @@ Submodule names follow the flax scopes (`conv`, `Conv3DFast_0`, `block0`,
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -207,15 +207,25 @@ class AttenModule2(nn.Module):
 
 class DecoderStage(nn.Module):
     """Trilinear upsample to the skip's size, join (AttenModule2 for the
-    MVAE seg decoder, else concat(skip, x)), then a decoder DoubleConv."""
+    MVAE seg decoder, else concat(skip, x)), then the basic module: a decoder
+    DoubleConv ("double_conv"), or `nn.vil.DoubleConvViL`
+    ("double_conv_vil", whose ViL takes `mlstm_kernel`)."""
 
     def __init__(self, cin: int, skip_ch: int, features: int, rsm: bool = False,
-                 order: str = "ilc"):
+                 order: str = "ilc", basic_module: str = "double_conv",
+                 mlstm_kernel: Optional[bool] = None):
         super().__init__()
         self.rsm = rsm
         if rsm:
             self.atten = AttenModule2()
-        self.basic = DoubleConv(cin + skip_ch, features, False, order)
+        if basic_module == "double_conv":
+            self.basic = DoubleConv(cin + skip_ch, features, False, order)
+        elif basic_module == "double_conv_vil":
+            from xlstm_hved_torch.nn.vil import DoubleConvViL  # vil imports this module
+
+            self.basic = DoubleConvViL(cin + skip_ch, features, order, mlstm_kernel)
+        else:
+            raise NotImplementedError(f"basic_module={basic_module!r} is not ported yet")
 
     def forward(self, encoder_features, x):
         x = resize_trilinear(x, encoder_features.shape[2:])

@@ -10,9 +10,12 @@ fgate bias linspace 3..6, zero gate kernels, zero norm offsets).
 - ResidualLayerNorm / MultiHeadLayerNorm: scale (1 + w), no bias
 - MatrixLSTMCell: i/f gates (fp32) from concat(q, k, v), mLSTM, out-norm
 - ViLLayer: up-proj -> (causal conv, headwise q/k/v, mLSTM) * SiLU(z) -> down
+- DropPath: per-sample stochastic depth on a residual branch
 - ViLBlock: pre-LN residual ViLLayer
 - ViLLayer3D: flattens a (B, C, D, H, W) volume to D*H*W tokens in
   row-major DHW order, runs one ViLBlock in fp32, reshapes back
+- DoubleConvViL: DoubleConv, LeakyReLU(0.01), ViLLayer3D (the ViL decoder
+  block of U_HVEDConvXLSTMNet3D)
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xlstm_hved_torch.nn.blocks import DoubleConv
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise
 from xlstm_hved_torch.ops.mlstm_cuda import mlstm_forward
 
@@ -174,17 +178,41 @@ class ViLLayer(nn.Module):
         return self.proj_down(h * F.silu(z))
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth: x + residual, with each sample's residual
+    dropped with probability `rate` (the kept ones scaled by 1 / (1 - rate)
+    when `scale_by_keep`). The draw comes from an explicit `generator`; with
+    none (or rate 0) it is x + residual, as the JAX module is without a
+    "droppath" RNG. Parameter-free; every preset has rate 0."""
+
+    def __init__(self, rate: float = 0.0, scale_by_keep: bool = True):
+        super().__init__()
+        self.rate, self.scale_by_keep = rate, scale_by_keep
+
+    def forward(self, x, residual, generator: Optional[torch.Generator] = None):
+        if self.rate == 0.0 or generator is None:
+            return x + residual
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=generator, device=generator.device) < keep
+        if self.scale_by_keep:
+            residual = residual / keep
+        return x + residual * mask.to(device=x.device, dtype=residual.dtype)
+
+
 class ViLBlock(nn.Module):
-    """Pre-LN residual ViLLayer."""
+    """Pre-LN residual ViLLayer, with stochastic depth when `drop_path` > 0
+    (drawn from the `generator` passed to forward)."""
 
     def __init__(self, dim: int, chunk_size: int = 128,
-                 mlstm_kernel: Optional[bool] = None):
+                 mlstm_kernel: Optional[bool] = None, drop_path: float = 0.0):
         super().__init__()
         self.norm = ResidualLayerNorm(dim)
         self.layer = ViLLayer(dim, chunk_size, mlstm_kernel)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x):
-        return x + self.layer(self.norm(x))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return self.drop_path(x, self.layer(self.norm(x)), generator)
 
 
 class ViLLayer3D(nn.Module):
@@ -206,3 +234,22 @@ class ViLLayer3D(nn.Module):
             tokens = x.to(dtype).flatten(2).transpose(1, 2)  # (B, DHW, C)
             y = self.vil(tokens)
         return y.transpose(1, 2).reshape(x.shape).to(x.dtype)
+
+
+class DoubleConvViL(nn.Module):
+    """Decoder DoubleConv, LeakyReLU(0.01), then one ViLLayer3D over its
+    `features` channels: dim 16 in U_HVEDConvXLSTMNet3D's seg decoder stage 0,
+    so inner width 32, 4 heads of width 8, over (D/4)(H/4)(W/4) tokens.
+
+    The JAX module builds its ViLLayer3D without the Pallas switch; here
+    `mlstm_kernel` is passed down as the bottleneck ViL's is, so that
+    `HVEDConfig.mlstm_kernel=False` puts both ViL sites on the plain scan."""
+
+    def __init__(self, cin: int, features: int, order: str = "ilc",
+                 mlstm_kernel: Optional[bool] = None):
+        super().__init__()
+        self.double_conv = DoubleConv(cin, features, False, order)
+        self.vil = ViLLayer3D(features, mlstm_kernel=mlstm_kernel)
+
+    def forward(self, x):
+        return self.vil(F.leaky_relu(self.double_conv(x), negative_slope=0.01))
