@@ -8,6 +8,8 @@ an InstanceNorm would amplify fp32 rounding into the comparison), biases
 ~ N(0, 0.05), norm scales near 1, BatchNorm statistics well away from 0.
 The same arrays go to the port through `params_from_jax`.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,12 @@ from xlstm_hved_torch.models import find_model_using_name
 from xlstm_hved_torch.utils.convert import params_from_jax
 
 torch.backends.cuda.matmul.allow_tf32 = False
+# Under pytest-xdist the workers share the machine's cores: each worker's
+# torch takes its share of them, so that the workers' OpenMP pools do not
+# oversubscribe the cores (spinning threads, each file many times slower).
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // _WORKERS))
 torch.backends.cudnn.allow_tf32 = False
 
 RNGS = {"params": jax.random.PRNGKey(0), "latent": jax.random.PRNGKey(1)}

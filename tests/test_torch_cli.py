@@ -17,10 +17,13 @@ from xlstm_hved_torch.data.synthetic import write_synthetic_dataset
 from xlstm_hved_torch.engine.checkpoint import CheckpointManager
 
 SHAPE = (16, 16, 16)
+# fp32 for G and D: bf16 on the CPU is slower, and the tests that are about
+# the precision options (test_precision_and_remat_options_run) set them
 ARGS_COMMON = ["--device", "cpu", "--crop_size", "16", "16", "16", "--num_epochs", "1",
-               "--disc_kernel", "3", "--disc_fmaps", "8"]
+               "--disc_kernel", "3", "--disc_fmaps", "8", "--compute_dtype", "float32",
+               "--disc_dtype", "float32"]
 # the port's departures from the JAX defaults
-PORT_DEFAULTS = {"device": "cuda", "compute_dtype": "float32", "disc_dtype": "float32"}
+PORT_DEFAULTS = {"device": "cuda"}
 
 
 @pytest.fixture(scope="module")
@@ -109,14 +112,39 @@ def test_parser_matches_jax_but_for_the_port_defaults():
         {k: v for k, v in want.items() if k not in PORT_DEFAULTS}
 
 
-@pytest.mark.parametrize("extra", [["--compute_dtype", "bfloat16"],
-                                   ["--disc_dtype", "bfloat16"], ["--remat"],
-                                   ["--distributed"], ["--num_data_devices", "2"]])
+@pytest.mark.parametrize("extra", [["--distributed"], ["--num_data_devices", "2"]])
 @pytest.mark.parametrize("main", [train.main, pretrain.main], ids=["train", "pretrain"])
 def test_unported_options_raise(dataset, tmp_path, main, extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         main(_argv(dataset, str(tmp_path)) + extra)
     assert not os.listdir(tmp_path)
+
+
+# each precision option on its own (the other dtype at float32), and --remat
+# at the bf16 defaults
+PRECISION_OPTIONS = {
+    "bf16-compute": ["--compute_dtype", "bfloat16"],
+    "bf16-disc": ["--disc_dtype", "bfloat16"],
+    "remat": ["--remat", "--compute_dtype", "bfloat16", "--disc_dtype", "bfloat16"],
+}
+
+
+@pytest.mark.parametrize("extra", list(PRECISION_OPTIONS.values()),
+                         ids=list(PRECISION_OPTIONS))
+@pytest.mark.parametrize("main", [train.main, pretrain.main], ids=["train", "pretrain"])
+def test_precision_and_remat_options_run(dataset, tmp_path, main, extra):
+    """One epoch with the option; the checkpoint holds fp32 G and D
+    parameters and Adam state whatever the compute dtypes."""
+    main(_argv(dataset, str(tmp_path)) + extra)
+    name = "XLSTM_HVED" if main is train.main else "U_HVEDDuSFEmViLDFNet3D_pretrain"
+    raw = CheckpointManager(str(tmp_path / name)).restore_raw("latest")[0]
+    assert raw["step"] == 2
+    for net in ("model", "disc"):
+        assert all(t.dtype in (torch.float32, torch.int64) for t in raw[net].values()), net
+    moments = [t for s in raw["opt_g"]["state"].values() for t in s.values() if t.ndim > 0]
+    assert moments and all(t.dtype == torch.float32 for t in moments)
+    rows = _rows(tmp_path / name / "loss_and_metrics.csv")
+    assert len(rows) == 1 and all(math.isfinite(float(v)) for v in rows[0].values())
 
 
 def test_cuda_request_without_a_card_raises(dataset, tmp_path):

@@ -17,7 +17,7 @@ import torch
 from xlstm_hved_torch.config import TrainConfig
 from xlstm_hved_torch.engine.evaluate import (default_apply_fn, make_hoisted_subset_sweep,
                                               make_subset_sweep)
-from xlstm_hved_torch.engine.train import (create_train_state, freeze_mask_for,
+from xlstm_hved_torch.engine.train import (create_train_state, freeze_mask_for, make_grad_fn,
                                            make_pretrain_step, make_train_step,
                                            pretrain_objective)
 from xlstm_hved_torch.models import Discriminator, find_model_using_name
@@ -161,8 +161,8 @@ def test_train_step_goes_through_the_kernels(dev):
 
 def test_pretrain_step_through_the_kernels_matches_plain(dev):
     """The pretrain objective's gradients through the kernels against those
-    through the plain mLSTM, under chip_smoke.py's G-gradient bounds (per
-    tensor max|d| <= 5e-3 * max|ref| + 3e-4 * the largest gradient), then
+    through the plain mLSTM, per tensor max|d| <= 5e-3 * max|ref| + 3e-4 *
+    the largest gradient (a third of chip_smoke.py phase 6's bound), then
     one whole pretrain step: 1/1/1 launches and the seg decoders frozen."""
     cfg = TrainConfig(crop_size=(32, 32, 32))
     name = "U_HVEDDuSFEmViLDFNet3D"
@@ -223,3 +223,109 @@ def test_hoisted_sweep_matches_plain_sweep(dev, name):
     assert seg_h.shape == (15, 1, 3, 48, 32, 32) and torch.isfinite(rec_h).all()
     assert float((seg_h - seg_p).abs().max()) <= 1e-3
     assert float((rec_h - rec_p).abs().max()) <= 3.5e-3
+
+
+@pytest.mark.parametrize("name", ["XLSTM_HVED", "U_HVEDConvXLSTMNet3D"])
+def test_hoisted_sweep_equals_plain_sweep_in_bf16(dev, name):
+    """At bf16 compute (the eval CLI's default) the hoisted sweep equals the
+    plain one bit for bit, as in fp32: the grouped convs compute a kept
+    stream from its own channels, the product of experts weights a dropped
+    expert by an exact 0."""
+    model = find_model_using_name(name, device=dev, seed=5, compute_dtype="bfloat16")
+    x = torch.rand(1, 4, 48, 32, 32, generator=torch.Generator(device=dev).manual_seed(6),
+                   device=dev)
+    patch = (32, 32, 32)
+    seg_h, rec_h = make_hoisted_subset_sweep(model, patch, recon_channels=4)(model, x)
+    seg_p, rec_p = make_subset_sweep(default_apply_fn(model, recon=True), patch,
+                                     recon_channels=4)(model, x)
+    assert seg_h.dtype == torch.float32 and torch.isfinite(rec_h).all()
+    assert torch.equal(seg_h, seg_p), float((seg_h - seg_p).abs().max())
+    assert torch.equal(rec_h, rec_p), float((rec_h - rec_p).abs().max())
+
+
+def test_bf16_forward_and_step_reach_the_kernels_in_fp32(dev):
+    """bf16 compute (G and D): the forward and a train step run the CUDA
+    kernels (1 launch per forward, 2/2/2 per step), and the mLSTM cell
+    receives fp32 (the kernels' wrapper refuses anything else)."""
+    cfg = TrainConfig(crop_size=(32, 32, 32))
+    model = find_model_using_name("XLSTM_HVED", device=dev, seed=8, compute_dtype="bfloat16")
+    disc = Discriminator(f_maps=8, kernel=3, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.rand(1, 4, 32, 32, 32, generator=gen, device=dev)
+    mask = (torch.rand(1, 3, 32, 32, 32, generator=gen, device=dev) > 0.7).float()
+    state = create_train_state(model, disc, cfg, 0, x, init_scheme="reference")
+    seen = set()
+    model.mvil.vil.layer.mlstm_cell.register_forward_pre_hook(
+        lambda mod, args: seen.update(a.dtype for a in args))
+    counters = (mlstm_cuda.run_kernel, mlstm_cuda.run_states_kernel, mlstm_cuda.run_bwd_kernel)
+    before = [fn.launches for fn in counters]
+    with torch.inference_mode():
+        out = model.eval()(x, recon=True, deterministic=True)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 0, 0]
+    assert out.seg.dtype == torch.float32 and torch.isfinite(out.recon).all()
+    before = [fn.launches for fn in counters]
+    state, metrics = make_train_step(model, disc, cfg)(state, x, mask)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 2, 2]
+    assert seen == {torch.float32}
+    assert all(torch.isfinite(torch.as_tensor(float(v))) for v in metrics.values())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_gradients_match_on_the_card(dev, dtype):
+    """remat against the same G objective without it, bitwise: cuDNN
+    deterministic and the upsampling's backward without atomics
+    (chip_smoke.deterministic_upsampling), the plain call run twice to show
+    that the comparison is deterministic; and the same 2/2/2 launches."""
+    from chip_smoke import deterministic_upsampling
+
+    cfg = TrainConfig(crop_size=(32, 32, 32))
+    model = find_model_using_name("XLSTM_HVED", device=dev, seed=10, compute_dtype=dtype)
+    remat = find_model_using_name("XLSTM_HVED", device=dev, compute_dtype=dtype, remat=True)
+    disc = Discriminator(f_maps=8, kernel=3, dtype=model.dtype)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.rand(1, 4, 32, 32, 32, generator=gen, device=dev)
+    mask = (torch.rand(1, 3, 32, 32, 32, generator=gen, device=dev) > 0.7).float()
+    create_train_state(model, disc, cfg, 0, x, init_scheme="reference")
+    remat.load_state_dict(model.state_dict())
+    counters = (mlstm_cuda.run_kernel, mlstm_cuda.run_states_kernel, mlstm_cuda.run_bwd_kernel)
+    grads = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        with deterministic_upsampling():
+            for m in (model, model, remat):
+                before = [fn.launches for fn in counters]
+                _, g = make_grad_fn(m, disc, cfg)(x, mask, subset_mask(6, dev),
+                                                  deterministic=True)
+                torch.cuda.synchronize()
+                assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 2, 2]
+                grads.append(g)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    g_a, g_b, g_r = grads
+    assert [n for n in g_a if not torch.equal(g_b[n], g_a[n])] == []
+    assert [n for n in g_a if not torch.equal(g_r[n], g_a[n])] == []
+
+
+def test_bf16_g_gradient_matches_jax_on_the_card(dev):
+    """The bf16 G gradient at 16^3 through the kernels against JAX's bf16 G
+    gradient on the same weights and input (chip_smoke.py phase 9's check):
+    their distance at most GRAD_SHARE of JAX's bf16-vs-fp32 distance."""
+    import numpy as np
+    from chip_smoke import (GRAD_SHARE, PRECISION_KEEP, bf16_gradient_share,
+                            precision_g_inputs, precision_ref)
+
+    ref = precision_ref()
+    model = find_model_using_name("XLSTM_HVED", device=dev, compute_dtype="bfloat16")
+    model.load_state_dict(ref["g_weights"], strict=True)
+    disc = Discriminator(f_maps=8, kernel=3, dtype=torch.bfloat16)
+    disc.load_state_dict(ref["d_weights"], strict=True)
+    x, mask = (torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1))).to(dev)
+               for a in precision_g_inputs())
+    before = mlstm_cuda.run_bwd_kernel.launches
+    _, g = make_grad_fn(model, disc.to(dev), TrainConfig(crop_size=(16, 16, 16)))(
+        x, mask, torch.tensor(PRECISION_KEEP, device=dev), deterministic=True)
+    assert mlstm_cuda.run_bwd_kernel.launches - before == 2
+    share = bf16_gradient_share({n: t.double().cpu().numpy() for n, t in g.items()}, ref)
+    assert share <= GRAD_SHARE, share

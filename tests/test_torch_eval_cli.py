@@ -28,8 +28,10 @@ from xlstm_hved_torch.metrics import dice_region, hd95_region, psnr, ssim3d
 from xlstm_hved_torch.models import Discriminator, find_model_using_name
 
 CROP = (16, 16, 16)
+# fp32: bf16 on the CPU is slower, and the test that is about the precision
+# option (test_eval_cli_precision_and_remat_options_run) sets it
 ARGS = ["--device", "cpu", "--crop_size", "16", "16", "16", "--disc_kernel", "3",
-        "--disc_fmaps", "8"]
+        "--disc_fmaps", "8", "--compute_dtype", "float32"]
 # the JAX CLI's own flags on top of base_parser, with their defaults
 TEST_FLAGS = {"ckpt": "best_dice", "compute_hd95": False, "save_pred_dir": "",
               "eval_recon": False, "save_plots_dir": ""}
@@ -115,11 +117,29 @@ def test_eval_parser_adds_the_jax_flags():
     assert {k: v for k, v in got.items() if k not in TEST_FLAGS} == base
 
 
-@pytest.mark.parametrize("extra", [["--compute_dtype", "bfloat16"], ["--remat"],
-                                   ["--distributed"]])
+@pytest.mark.parametrize("extra", [["--distributed"]])
 def test_eval_cli_unported_options_raise(valid_dir, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         test_cli.main(ARGS + ["--valid_dir", valid_dir, "--out_dir", str(tmp_path)] + extra)
+
+
+@pytest.mark.parametrize("extra,dtype", [(["--compute_dtype", "bfloat16"], "bfloat16"),
+                                         (["--remat"], "float32")], ids=["bf16", "remat"])
+def test_eval_cli_precision_and_remat_options_run(valid_dir, checkpoint, extra, dtype):
+    """The option runs the sweep (remat has nothing to recompute without a
+    gradient) on the checkpoint's fp32 parameters; the Dice equal the sweep's
+    at the option's compute dtype."""
+    out, weights = checkpoint
+    summary = test_cli.main(ARGS + ["--valid_dir", valid_dir, "--out_dir", out] + extra)
+    assert all(t.dtype in (torch.float32, torch.int64) for t in weights.values())
+    model = find_model_using_name("XLSTM_HVED", device="cpu", compute_dtype=dtype)
+    model.load_state_dict(weights)
+    x, _, mask = assemble_eval_batch([BraTSDataset(valid_dir, m_full=True).load(0)], CROP,
+                                     "cpu")
+    segs = make_hoisted_subset_sweep(model, CROP, CROP)(model, x)
+    for s in (0, 14):
+        assert summary["dice"][s, 0] == dice_region(segs[s], mask, "WT").item()
+    assert summary["volumes"] == 1 and np.isfinite(summary["dice"]).all()
 
 
 def test_eval_cli_cuda_request_without_a_card_raises(valid_dir, tmp_path):

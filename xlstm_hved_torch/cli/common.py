@@ -1,12 +1,11 @@
 """Shared CLI plumbing (counterpart of `xlstm_hved_tpu/cli/common.py`): the
 argument surface of the entry points and the host-to-device batch assembly.
 
-The parser keeps every flag and default of the JAX `base_parser`, with these
-exceptions: `--device` (default `cuda`; the CPU only when asked for), and
-`--compute_dtype` / `--disc_dtype` default to float32. `check_args` refuses
-what the port does not run yet: bf16 compute, `--remat`, `--distributed`
-and more than one data device. There is no compile cache to enable (the
-JAX CLIs turn on XLA's): the CUDA kernels' build cache is
+The parser keeps every flag and default of the JAX `base_parser` (bf16
+compute for G and D included), and adds `--device` (default `cuda`; the CPU
+only when asked for). `check_args` refuses what the port does not run yet:
+`--distributed` and more than one data device. There is no compile cache
+to enable (the JAX CLIs turn on XLA's): the CUDA kernels' build cache is
 `xlstm_hved_torch/_build/`.
 """
 from __future__ import annotations
@@ -44,9 +43,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--out_dir", type=str, default="results")
     p.add_argument("--model_name", type=str, default="XLSTM_HVED")
     p.add_argument("--pretrain_weights", type=str, default="")
-    p.add_argument("--compute_dtype", type=str, default="float32",
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"],
-                   help="model compute dtype; the port runs float32 only")
+                   help="G's compute dtype (parameters, gradients and Adam state "
+                        "stay float32; the ViL and the mLSTM kernels run float32)")
     p.add_argument("--num_data_devices", type=int, default=0,
                    help="data-parallel size (0 = all); the port runs on one device")
     p.add_argument("--profile_dir", type=str, default="",
@@ -54,11 +54,12 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--disc_kernel", type=int, default=4,
                    help="discriminator conv kernel (use 3 for crops < 48)")
     p.add_argument("--disc_fmaps", type=int, default=64)
-    p.add_argument("--disc_dtype", type=str, default="float32",
+    p.add_argument("--disc_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"],
-                   help="discriminator compute dtype; the port runs float32 only")
+                   help="discriminator compute dtype")
     p.add_argument("--remat", action="store_true",
-                   help="rematerialise model stages in backward (not ported)")
+                   help="recompute the encoder, DRB and decoder stages in the "
+                        "backward (less peak memory, more time)")
     p.add_argument("--distributed", action="store_true",
                    help="multi-process data parallelism (not ported)")
     p.add_argument("--coordinator_address", type=str, default="")
@@ -92,10 +93,6 @@ def base_parser(description: str) -> argparse.ArgumentParser:
 def check_args(args) -> torch.device:
     """Refuse the options the port does not run yet; return the device,
     which raises when it is a CUDA device and none is present."""
-    if "bfloat16" in (args.compute_dtype, args.disc_dtype):
-        raise NotImplementedError("bfloat16 compute is not ported yet; use float32")
-    if args.remat:
-        raise NotImplementedError("--remat is not ported yet")
     if args.distributed or args.num_data_devices > 1:
         raise NotImplementedError("data parallelism (--distributed, "
                                   "--num_data_devices > 1) is not ported yet")

@@ -27,6 +27,7 @@ from xlstm_hved_torch.engine.train import (create_train_state, freeze_mask_for,
                                            make_pretrain_step)
 from xlstm_hved_torch.metrics import psnr, ssim3d
 from xlstm_hved_torch.models import Discriminator, find_model_using_name
+from xlstm_hved_torch.nn.blocks import compute_dtype
 from xlstm_hved_torch.utils.logging import CSVLogger, RunningAverage, timed_iter
 
 CSV_FIELDS = ["Epoch", "Train_Loss", "Valid_Loss", "PSNR_f", "SSIM_f",
@@ -61,8 +62,10 @@ def main(argv=None):
     cfg = train_cfg_from_args(args, steps_per_epoch)
 
     model = find_model_using_name(args.model_name, device=device, seed=args.seed,
-                                  shared_recon=False)
-    disc = Discriminator(f_maps=args.disc_fmaps, kernel=args.disc_kernel)
+                                  shared_recon=False, compute_dtype=args.compute_dtype,
+                                  remat=args.remat)
+    disc = Discriminator(f_maps=args.disc_fmaps, kernel=args.disc_kernel,
+                         dtype=compute_dtype(args.disc_dtype))
     sample = torch.zeros((1, 4, *cfg.crop_size), device=device)
     state = create_train_state(model, disc, cfg, args.seed, sample, steps_per_epoch,
                                init_scheme=args.init_scheme)

@@ -67,7 +67,8 @@ def main(argv=None):
 
     validset = BraTSDataset(args.valid_dir, m_full=True, seed=0)
     crop = tuple(args.crop_size)
-    model = find_model_using_name(args.model_name, device=device, seed=args.seed)
+    model = find_model_using_name(args.model_name, device=device, seed=args.seed,
+                                  compute_dtype=args.compute_dtype)
     ckpt = CheckpointManager(f"{args.out_dir}/{args.model_name}")
     if ckpt.exists(args.ckpt):
         model.load_state_dict(ckpt.restore_raw(args.ckpt)[0]["model"], strict=True)

@@ -30,6 +30,7 @@ from xlstm_hved_torch.engine.checkpoint import CheckpointManager, surgical_resto
 from xlstm_hved_torch.engine.train import (create_train_state, make_eval_step,
                                            make_train_step)
 from xlstm_hved_torch.models import Discriminator, find_model_using_name
+from xlstm_hved_torch.nn.blocks import compute_dtype
 from xlstm_hved_torch.utils.logging import (CSVLogger, RunningAverage, profiler_trace,
                                             timed_iter)
 
@@ -60,8 +61,10 @@ def main(argv=None):
     steps_per_epoch = max(len(trainset) // args.train_batch, 1)
     cfg = train_cfg_from_args(args, steps_per_epoch)
 
-    model = find_model_using_name(args.model_name, device=device, seed=args.seed)
-    disc = Discriminator(f_maps=args.disc_fmaps, kernel=args.disc_kernel)
+    model = find_model_using_name(args.model_name, device=device, seed=args.seed,
+                                  compute_dtype=args.compute_dtype, remat=args.remat)
+    disc = Discriminator(f_maps=args.disc_fmaps, kernel=args.disc_kernel,
+                         dtype=compute_dtype(args.disc_dtype))
     sample = torch.zeros((1, 4, *cfg.crop_size), device=device)
     state = create_train_state(model, disc, cfg, args.seed, sample, steps_per_epoch,
                                init_scheme=args.init_scheme)

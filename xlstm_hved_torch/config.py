@@ -4,11 +4,11 @@ The port's own copy of `xlstm_hved_tpu/config.py` (the port imports nothing
 from the JAX package): the same `HVEDConfig` flags, the same zoo, the same
 aliases and the same `TrainConfig`, so a name resolves to the same
 architecture and the same training set-up in both packages.
-Two compute-policy fields differ: the port runs fp32 only, and
-`mlstm_kernel` picks the CUDA mLSTM kernels where the JAX config picked its
-Pallas kernels. The JAX `remat` flag (stage rematerialisation in training)
-is not ported yet; `num_groups` (GroupNorm orders, which no preset uses) is
-left out.
+One compute-policy field differs: `mlstm_kernel` picks the CUDA mLSTM
+kernels where the JAX config picked its Pallas kernels. `compute_dtype`
+("float32" or "bfloat16") and `remat` (stage rematerialisation while
+gradients are taken) are the JAX fields; `num_groups` (GroupNorm orders,
+which no preset uses) is left out.
 """
 from __future__ import annotations
 
@@ -51,12 +51,15 @@ class HVEDConfig:
     fusion: bool = False                # non-MVAE FusionModule path
 
     # compute policy
-    compute_dtype: str = "float32"      # the port runs fp32 only
+    compute_dtype: str = "float32"      # or "bfloat16" (the CLIs' default)
     vil_chunk_size: int = 128
     # None = auto: the CUDA mLSTM kernels when the tensors are on the card,
     # the plain chunkwise scan when they are on the CPU. False asks for the
     # plain scan on the card too (a comparison baseline).
     mlstm_kernel: Optional[bool] = None
+    remat: bool = False                 # recompute the encoder / decoder / DRB
+    # stages in the backward (torch.utils.checkpoint per stage); the
+    # parameter names do not change
 
     # ---- derived ----
     @property

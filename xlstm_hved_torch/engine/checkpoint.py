@@ -14,6 +14,9 @@
   epoch and the bests.
 - Pretrained-weight surgery copies the parameters whose name and shape
   match (a non-strict load).
+- The parameters are fp32 whatever the compute dtype, and the names are
+  the same with and without remat, so a checkpoint of a bf16 or remat run
+  loads into an fp32 model, and the other way round, with `strict=True`.
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ SUBSET_MASKS.
 - `make_hoisted_subset_sweep`: per window, the model's subset-invariant
   prefix once on the full input, then 15 suffixes (`models/hved.py`); it
   equals the plain sweep.
-The JAX engine's sweep sharded over a device mesh waits for the port's data
+The windows accumulate in fp32 whatever the model's compute dtype. The JAX
+engine's sweep sharded over a device mesh waits for the port's data
 parallelism.
 """
 from __future__ import annotations

@@ -25,7 +25,10 @@ with the seg decoders frozen (`freeze_mask_for`).
 Randomness comes from the state's generators: subset draws from a CPU
 generator, the latent noise from one on the model's device. The G and D
 forwards run on whatever device the modules are on; the mLSTM goes through
-the CUDA kernels there and through the plain scan on the CPU.
+the CUDA kernels there and through the plain scan on the CPU. They run in
+the modules' own compute dtypes (G's `compute_dtype`, D's `dtype`; the
+losses read their outputs in fp32), while the parameters, their gradients
+and the Adam state stay fp32.
 """
 from __future__ import annotations
 

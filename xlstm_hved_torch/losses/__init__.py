@@ -1,7 +1,9 @@
 """Loss functions (counterpart of `xlstm_hved_tpu/losses/__init__.py`).
 
 All losses take probabilities (post-sigmoid/softmax) and reduce to fp32
-scalars, with the JAX package's epsilons. Tensors are NCDHW (B, C, D, H, W):
+scalars (fp64 in an fp64 run), with the JAX package's epsilons: they cast
+to fp32 where the JAX losses do, so bf16 outputs are read in fp32.
+Tensors are NCDHW (B, C, D, H, W):
 the channel axis is 1 where the JAX functions use the last axis.
 """
 from __future__ import annotations
@@ -9,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from xlstm_hved_torch.nn.blocks import at_least_fp32
 from xlstm_hved_torch.ops.poe import compute_kld_drop, compute_kld_subsets, kl_divergence
 
 __all__ = [
@@ -27,8 +30,8 @@ __all__ = [
 
 
 def _flatten_per_channel(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, ...) -> (C, B * spatial), fp32."""
-    return x.float().transpose(0, 1).reshape(x.shape[1], -1)
+    """(B, C, ...) -> (C, B * spatial), at least fp32."""
+    return at_least_fp32(x).transpose(0, 1).reshape(x.shape[1], -1)
 
 
 def per_channel_dice(pred: torch.Tensor, target: torch.Tensor,
@@ -61,19 +64,19 @@ def generalized_dice_loss(pred: torch.Tensor, target: torch.Tensor,
 
 def gan_loss_lsgan(pred: torch.Tensor, target_is_real: bool) -> torch.Tensor:
     """LSGAN: mean squared distance to the constant 1 (real) or 0 (fake)."""
-    return torch.mean((pred.float() - (1.0 if target_is_real else 0.0)).square())
+    return torch.mean((at_least_fp32(pred) - (1.0 if target_is_real else 0.0)).square())
 
 
 def boundary_loss(probs: torch.Tensor, gt_sdf: torch.Tensor) -> torch.Tensor:
     """Mean of probabilities times the ground truth's signed distance map."""
-    return torch.mean(probs.float() * gt_sdf.float())
+    return torch.mean(at_least_fp32(probs) * at_least_fp32(gt_sdf))
 
 
 def bce_loss(pred: torch.Tensor, target: torch.Tensor,
              epsilon: float = 1e-7) -> torch.Tensor:
     """Sum over channels of the per-channel BCE on probabilities."""
-    p = torch.clamp(pred.float(), epsilon, 1.0 - epsilon)
-    t = target.float()
+    p = torch.clamp(at_least_fp32(pred), epsilon, 1.0 - epsilon)
+    t = at_least_fp32(target)
     dims = (0,) + tuple(range(2, pred.ndim))
     per_ch = -torch.mean(t * torch.log(p) + (1 - t) * torch.log1p(-p), dim=dims)
     return per_ch.sum()
@@ -86,10 +89,10 @@ def weighted_cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor) -> t
     flat = _flatten_per_channel(logits)
     weights = ((1.0 - flat).sum(-1) / flat.sum(-1)).detach()
     labels = target.argmax(dim=1)
-    nll = -torch.gather(F.log_softmax(logits.float(), dim=1), 1, labels[:, None])[:, 0]
+    nll = -torch.gather(F.log_softmax(at_least_fp32(logits), dim=1), 1, labels[:, None])[:, 0]
     w = weights[labels]
     return (w * nll).sum() / w.sum()
 
 
 def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.mean((pred.float() - target.float()).square())
+    return torch.mean((at_least_fp32(pred) - at_least_fp32(target)).square())

@@ -20,6 +20,17 @@ latent tails and the rest. The hoist is every level without skip-return and
 level 0 with it: the skr gate chain starts from the masked input
 (`x0_init`) and gates every stream from level 1 on.
 
+Precision follows the JAX model's: with `compute_dtype="bfloat16"` the input
+is cast to bf16 and every conv and dense layer computes in bf16, set in one
+pass when the model is built (parameters, BatchNorm
+statistics and gradients stay fp32); the experts are cast to fp32 before the
+product of experts, which runs in fp32 with the reparametrisation, and the
+sample is cast back; the ViL is an fp32 island; seg and recon come out fp32.
+"float32" casts nothing (the parameters' dtype, so an fp64 copy of the model
+runs in fp64). With `remat` the encoder, DRB and decoder stages recompute
+their insides in the backward (`torch.utils.checkpoint`) while gradients are
+taken, as the JAX model's `nn.remat` stages do.
+
 Ported: the MVAE presets with the double-conv basic module (XLSTM_HVED and
 its ablations, the U_HVEDConv* family, the ViL decoder block of
 U_HVEDConvXLSTMNet3D included), with one shared recon stream or one per
@@ -33,16 +44,18 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from xlstm_hved_torch.config import HVEDConfig, features_per_level
 from xlstm_hved_torch.nn.blocks import (BasicConv, BlockDiagEncoderStage,
-                                        BlockDiagSingleConv, DecoderStage,
-                                        EncoderStage, block_diag_conv, conv3d,
-                                        resize_trilinear)
+                                        BlockDiagSingleConv, Conv3d, DecoderStage,
+                                        EncoderStage, at_least_fp32, block_diag_conv,
+                                        compute_dtype, conv3d, resize_trilinear,
+                                        set_compute_dtype)
 from xlstm_hved_torch.nn.dusfe import DuSEAttention
 from xlstm_hved_torch.nn.gates import DISC_PADDING, DiscriminatorBlock
 from xlstm_hved_torch.nn.skr import SkrGate
-from xlstm_hved_torch.nn.vil import ViLLayer3D
+from xlstm_hved_torch.nn.vil import DropPath, ViLLayer3D
 from xlstm_hved_torch.ops.poe import product_of_experts, reparametrize, stack_prior
 
 
@@ -80,8 +93,6 @@ def _check_ported(cfg: HVEDConfig):
         missing.append(f"basic_module={cfg.basic_module!r}")
     if cfg.fusion_level < cfg.num_levels:
         missing.append("single-stream deep levels (fusion_level < num_levels)")
-    if cfg.compute_dtype != "float32":
-        missing.append(f"compute_dtype={cfg.compute_dtype!r} (the port runs fp32)")
     for flag in ("recon_decoder", "recon_skip", "final_sigmoid"):
         if not getattr(cfg, flag):
             missing.append(f"{flag}=False")
@@ -89,11 +100,16 @@ def _check_ported(cfg: HVEDConfig):
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
 
+# the stage types the JAX model wraps in nn.remat under cfg.remat
+REMAT_STAGES = (BlockDiagEncoderStage, EncoderStage, DecoderStage, BlockDiagSingleConv)
+
+
 class HVEDFusionNet(nn.Module):
     def __init__(self, cfg: HVEDConfig):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg.compute_dtype)
         M = cfg.multi_stream
         levels = cfg.num_levels
         enc_f, dec_f, lat = cfg.enc_f_maps, cfg.dec_f_maps, cfg.mvae_latents
@@ -143,6 +159,22 @@ class HVEDFusionNet(nn.Module):
             self.final_conv = conv3d(rec_last, cfg.out_channels, 1)
         else:
             self.final_conv = conv3d(rev_dec[-1], cfg.out_channels, 1)
+        set_compute_dtype(self, self.dtype)
+
+    def _stage(self, name: str, *args):
+        """Run the named stage; under `cfg.remat`, while gradients are taken,
+        as a checkpoint whose insides are recomputed in the backward. The
+        recompute must draw what the first pass drew: a DropPath with a
+        non-zero rate (drawn from an explicit generator, which the checkpoint
+        does not restore) is refused there."""
+        stage = getattr(self, name)
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return stage(*args)
+        if any(isinstance(m, DropPath) and m.rate > 0 for m in stage.modules()):
+            raise NotImplementedError(
+                f"remat of {name}: a DropPath with a non-zero rate would draw again in "
+                "the recompute")
+        return checkpoint(stage, *args, use_reentrant=False)
 
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None, *,
                 instance_missing: bool = False, seg: bool = True,
@@ -187,7 +219,7 @@ class HVEDFusionNet(nn.Module):
         keep_b = keep[None, :].expand(B, M) if keep.ndim == 1 else keep
         lat = cfg.mvae_latents
 
-        x = x.to(self.init_blocks.weight.dtype)
+        x = x.to(self.dtype or self.init_blocks.weight.dtype)
         xs = prefix.xs if mode == "suffix" else self.init_blocks(x)
         mu_list, logvar_list, rec_feats = [], [], []
         skr_feat = None
@@ -198,10 +230,11 @@ class HVEDFusionNet(nn.Module):
                 if cfg.skip_return and skr_feat is not None:
                     gate = getattr(self, f"skr_att_{lv}")(skr_feat)
                     xs = gate * xs + xs
-                xs = getattr(self, f"encoders_{lv}")(xs)
+                xs = self._stage(f"encoders_{lv}", xs)
 
-                # folded (B, M*2L, ...) -> (B, M, 2L, ...): mu first, logvar second
-                drb = getattr(self, f"drb_{lv}")(xs)
+                # folded (B, M*2L, ...) -> (B, M, 2L, ...): mu first, logvar
+                # second; the experts in fp32 whatever the compute dtype
+                drb = at_least_fp32(self._stage(f"drb_{lv}", xs))
                 drb = drb.reshape(B, M, 2 * lat[lv], *drb.shape[2:])
                 mu_e, logvar_e = stack_prior(drb[:, :, :lat[lv]], drb[:, :, lat[lv]:])
             mu_list.append(mu_e)
@@ -214,13 +247,13 @@ class HVEDFusionNet(nn.Module):
 
             pd_mu, pd_logvar = product_of_experts(mu_e, logvar_e, keep_b)
             z = reparametrize(pd_mu, pd_logvar, deterministic, generator)
-            z = getattr(self, f"vu_{lv}")(z)
+            z = getattr(self, f"vu_{lv}")(z.to(self.dtype or z.dtype))
             z = resize_trilinear(z, [2 * s for s in z.shape[2:]])
             rec_feats.insert(0, getattr(self, f"conv_block_{lv}")(z))
 
             if cfg.skip_return:
                 skr_feat = (self.x0_init(x) if skr_feat is None
-                            else getattr(self, f"skr_encoder_{lv}")(skr_feat))
+                            else self._stage(f"skr_encoder_{lv}", skr_feat))
 
         if cfg.mid_vil:
             vil_in = rec_feats[0] + skr_feat if skr_feat is not None else rec_feats[0]
@@ -238,27 +271,28 @@ class HVEDFusionNet(nn.Module):
             for m in range(self.rec_streams):
                 rx = sx = bottleneck
                 for j in range(levels - 1):
-                    rx = getattr(self, f"rdecoder_{m}_{j}")(skips[j], rx)
+                    rx = self._stage(f"rdecoder_{m}_{j}", skips[j], rx)
                     if seg:
-                        sx = getattr(self, f"sdecoder_{j}")(skips[j], sx)
+                        sx = self._stage(f"sdecoder_{j}", skips[j], sx)
                         if j < _DUSE_LEVELS:
                             rx, sx = getattr(self, f"dusfe_{j}")(rx, sx)
                 if recon:
                     recons.append(getattr(self, f"rfinal_{m}")(rx))
             if seg:
-                seg_out = torch.sigmoid(self.final_conv(self.sfinal_0(sx)))
+                seg_out = at_least_fp32(torch.sigmoid(self.final_conv(self.sfinal_0(sx))))
         else:
             for m in range(self.rec_streams if recon else 0):
                 rx = bottleneck
                 for j in range(levels - 1):
-                    rx = getattr(self, f"rdecoder_{m}_{j}")(skips[j], rx)
+                    rx = self._stage(f"rdecoder_{m}_{j}", skips[j], rx)
                 recons.append(getattr(self, f"rfinal_{m}")(rx))
             for j in range(levels - 1 if seg else 0):
-                sx = getattr(self, f"sdecoder_{j}")(skips[j], sx)
+                sx = self._stage(f"sdecoder_{j}", skips[j], sx)
             if seg:
-                seg_out = torch.sigmoid(self.final_conv(sx))
+                seg_out = at_least_fp32(torch.sigmoid(self.final_conv(sx)))
         if recon:
-            recon_out = recons[0] if len(recons) == 1 else torch.cat(recons, dim=1)
+            recon_out = at_least_fp32(
+                recons[0] if len(recons) == 1 else torch.cat(recons, dim=1))
         return HVEDOutput(seg_out, tuple(mu_list), tuple(logvar_list), recon_out)
 
 
@@ -267,10 +301,13 @@ class Discriminator(nn.Module):
     recon) (counterpart of `xlstm_hved_tpu/models/hved.py::Discriminator`):
     `num_levels` DiscriminatorBlocks of f_maps * 2^i channels with the given
     strides, InstanceNorm from the second on, then a bias-free k^3 conv to
-    one channel. x: (B, in_channels, D, H, W)."""
+    one channel. x: (B, in_channels, D, H, W). `dtype` is D's own compute
+    dtype (the CLIs' --disc_dtype; None = the parameters'); the output is in
+    it, and the LSGAN losses read it in fp32."""
 
     def __init__(self, in_channels: int = 7, f_maps: int = 64, kernel: int = 4,
-                 num_levels: int = 4, strides: Tuple[int, ...] = (1, 2, 2, 2)):
+                 num_levels: int = 4, strides: Tuple[int, ...] = (1, 2, 2, 2),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel, self.num_levels = kernel, num_levels
         feats = [f_maps * 2 ** i for i in range(num_levels)]
@@ -279,7 +316,8 @@ class Discriminator(nn.Module):
             self.add_module(f"block{i}", DiscriminatorBlock(
                 cin, f, kernel=kernel, stride=strides[i], normalize=i > 0))
             cin = f
-        self.last = nn.Conv3d(cin, 1, kernel, padding=DISC_PADDING, bias=False)
+        self.last = Conv3d(cin, 1, kernel, padding=DISC_PADDING, bias=False)
+        set_compute_dtype(self, dtype)
 
     def check_input(self, spatial):
         """Raise ValueError when a (D, H, W) input leaves the final conv no

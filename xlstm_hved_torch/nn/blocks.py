@@ -6,6 +6,14 @@ convs over folded modality streams are grouped convs here: stream m owns
 channels [m*C, (m+1)*C), the group-major order of `nn.Conv3d(groups=M)`.
 Submodule names follow the flax scopes (`conv`, `Conv3DFast_0`, `block0`,
 `atten`, `basic`, ...) so a converted JAX tree loads strictly.
+
+Precision follows the JAX modules' `dtype`: every `Conv3d` and `Linear`
+has a `compute_dtype` (None computes in the parameters' dtype, fp32, or
+fp64 when the module was cast to it), which the model sets on all of them
+in one pass (`set_compute_dtype`). With `torch.bfloat16` a conv casts its
+input, weight and bias to bf16 at the op and returns bf16, as flax's
+`dtype=bf16` does; the parameters stay fp32. Norm statistics are taken in
+at least fp32 (`at_least_fp32`), and the norms return their input's dtype.
 """
 from __future__ import annotations
 
@@ -16,15 +24,74 @@ import torch.nn.functional as F
 from torch import nn
 
 _ORDER_CHARS = set("cil")
+_HALF = (torch.bfloat16, torch.float16)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> Optional[torch.dtype]:
+    """`HVEDConfig.compute_dtype` / the CLIs' `--*_dtype` -> the blocks'
+    `dtype`: None for "float32" (the parameters' own dtype), torch.bfloat16
+    for "bfloat16"."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {name!r}: expected one of {sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32 when it is half precision (bf16, fp16), else as it is
+    (fp32, or fp64 in an fp64 run): the JAX modules' `astype(float32)`."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _cast(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]):
+    return t if t is None or dtype is None else t.to(dtype)
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d run in `compute_dtype` when it is set: input, weight and
+    bias cast at the op (the weight's gradient comes back in the weight's
+    dtype)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
+
+
+class Linear(nn.Linear):
+    """nn.Linear run in `compute_dtype` when it is set (flax Dense's
+    `dtype`)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Every Conv3d and Linear in `module` computes in `dtype`, as the JAX
+    model hands its `dtype` to every block. The ViL's layers (torch's own
+    nn.Linear) are not among them: the fp32 island. Returns `module`."""
+    for m in module.modules():
+        if isinstance(m, (Conv3d, Linear)):
+            m.compute_dtype = dtype
+    return module
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Per-sample, per-channel normalisation over the spatial axes, no
-    affine: fp32 mean, then the centred two-pass variance."""
+    affine, statistics in at least fp32, returned in x's dtype. Half-precision
+    inputs take JAX's one-pass moments E[x], E[x^2] (the variance floored at
+    0); fp32 and fp64 inputs the centred two-pass variance."""
     dims = tuple(range(2, x.ndim))
-    x32 = x.float()
+    x32 = at_least_fp32(x)
     mean = x32.mean(dim=dims, keepdim=True)
-    var = (x32 - mean).square().mean(dim=dims, keepdim=True)
+    if x.dtype in _HALF:
+        var = torch.clamp(x32.square().mean(dim=dims, keepdim=True) - mean.square(), min=0.0)
+    else:
+        var = (x32 - mean).square().mean(dim=dims, keepdim=True)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
@@ -37,7 +104,8 @@ class BatchNorm3d(nn.BatchNorm3d):
     (torch momentum 0.01) towards the batch mean and the BIASED batch
     variance (torch's own F.batch_norm folds in the unbiased one, n/(n-1)
     larger, visible at small spatial sizes). Eval mode is torch's, on the
-    running statistics.
+    running statistics. Both reduce and normalise in at least fp32, as
+    flax's BatchNorm does, and return the input's dtype.
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -45,11 +113,15 @@ class BatchNorm3d(nn.BatchNorm3d):
 
     def forward(self, x):
         if not self.training:
-            return super().forward(x)
+            return super().forward(at_least_fp32(x)).to(x.dtype)
         dims = (0,) + tuple(range(2, x.ndim))
-        x32 = x.float()
+        # flax casts x twice, once for the statistics and once where it is
+        # centred, so its gradient comes back as two half-precision terms
+        # added in x's dtype: two casts here as well
+        x32 = at_least_fp32(x)
         mean = x32.mean(dim=dims)
         var = torch.clamp(x32.square().mean(dim=dims) - mean.square(), min=0.0)
+        x32 = at_least_fp32(x)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.mul_(keep).add_(self.momentum * mean)
@@ -66,7 +138,7 @@ def leaky_relu(x: torch.Tensor) -> torch.Tensor:
 
 def resize_trilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     """Trilinear resize of (B, C, D, H, W) to spatial `size`, half-pixel
-    centres (align_corners=False)."""
+    centres (align_corners=False), in x's dtype."""
     size = tuple(int(s) for s in size)
     if tuple(x.shape[2:]) == size:
         return x
@@ -78,10 +150,10 @@ def max_pool3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 
 
 def conv3d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
-           groups: int = 1, bias: bool = True) -> nn.Conv3d:
-    """nn.Conv3d with symmetric padding k // 2."""
-    return nn.Conv3d(cin, cout, kernel_size, stride, padding=kernel_size // 2,
-                     groups=groups, bias=bias)
+           groups: int = 1, bias: bool = True) -> Conv3d:
+    """Conv3d with symmetric padding k // 2."""
+    return Conv3d(cin, cout, kernel_size, stride, padding=kernel_size // 2,
+                  groups=groups, bias=bias)
 
 
 def channel_pool(x: torch.Tensor) -> torch.Tensor:
@@ -166,7 +238,8 @@ class EncoderStage(nn.Module):
 
 def _composed_pool_gate(x, grouped: nn.Conv3d, point: nn.Conv3d, expan: int = 4):
     """The grouped 7^3 conv followed by a 1x1 conv with no nonlinearity
-    between is one linear map: fold the weights and run one thin 7^3 conv.
+    between is one linear map: fold the weights (in the parameters' dtype)
+    and run one thin 7^3 conv in the gate's compute dtype.
 
         k_eff[o, m] = sum_e w7[m*E + e, 0] * w1[o, m*E + e]
         b_eff[o]    = sum_{m,e} b7[m*E + e] * w1[o, m*E + e] + b1[o]
@@ -177,7 +250,8 @@ def _composed_pool_gate(x, grouped: nn.Conv3d, point: nn.Conv3d, expan: int = 4)
     w1 = point.weight.reshape(point.out_channels, streams, expan)
     k_eff = torch.einsum("mekij,ome->omkij", w7, w1)
     b_eff = torch.einsum("me,ome->o", grouped.bias.reshape(streams, expan), w1) + point.bias
-    return F.conv3d(x, k_eff, b_eff, padding=k[0] // 2)
+    dt = grouped.compute_dtype
+    return F.conv3d(_cast(x, dt), _cast(k_eff, dt), _cast(b_eff, dt), padding=k[0] // 2)
 
 
 class AttenModule2(nn.Module):
@@ -209,7 +283,7 @@ class DecoderStage(nn.Module):
     """Trilinear upsample to the skip's size, join (AttenModule2 for the
     MVAE seg decoder, else concat(skip, x)), then the basic module: a decoder
     DoubleConv ("double_conv"), or `nn.vil.DoubleConvViL`
-    ("double_conv_vil", whose ViL takes `mlstm_kernel`)."""
+    ("double_conv_vil", whose ViL takes `mlstm_kernel` and stays fp32)."""
 
     def __init__(self, cin: int, skip_ch: int, features: int, rsm: bool = False,
                  order: str = "ilc", basic_module: str = "double_conv",
@@ -237,7 +311,7 @@ class DecoderStage(nn.Module):
 
 
 def block_diag_conv(streams: int, cin: int, features: int, kernel_size: int = 3,
-                    stride: int = 1) -> nn.Conv3d:
+                    stride: int = 1) -> Conv3d:
     """M independent per-stream convs on the folded (B, M*cin, ...) layout:
     a grouped conv with groups = M."""
     return conv3d(streams * cin, streams * features, kernel_size, stride, streams)

@@ -1,11 +1,14 @@
 """DuSE cross-awareness between the recon and seg decoder branches in NCDHW
-(counterpart of `xlstm_hved_tpu/nn/dusfe.py::DuSEAttention`)."""
+(counterpart of `xlstm_hved_tpu/nn/dusfe.py::DuSEAttention`). The dense
+layers and convs compute in the model's compute dtype (flax's Dense and
+conv `dtype`), the BatchNorms in at least fp32, returning the branch's
+dtype."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from xlstm_hved_torch.nn.blocks import BatchNorm3d, conv3d
+from xlstm_hved_torch.nn.blocks import BatchNorm3d, Linear, conv3d
 
 
 class DuSEAttention(nn.Module):
@@ -20,9 +23,9 @@ class DuSEAttention(nn.Module):
     def __init__(self, features: int):
         super().__init__()
         c = features
-        self.fc_comb = nn.Linear(2 * c, c)
-        self.fc_ch1 = nn.Linear(c, c)
-        self.fc_ch2 = nn.Linear(c, c)
+        self.fc_comb = Linear(2 * c, c)
+        self.fc_ch1 = Linear(c, c)
+        self.fc_ch2 = Linear(c, c)
         self.conv_squeeze_ch1 = conv3d(c, 1, 1)
         self.conv_squeeze_ch2 = conv3d(c, 1, 1)
         self.conv_comb = conv3d(2, 1, 1)

@@ -1,12 +1,14 @@
 """Discriminator building block in NCDHW (counterpart of
 `xlstm_hved_tpu/nn/gates.py::DiscriminatorBlock`). The conv is named
-`Conv_0` after the flax scope, so a converted JAX tree loads strictly."""
+`Conv_0` after the flax scope, so a converted JAX tree loads strictly. The
+conv computes in the discriminator's compute dtype, InstanceNorm in at
+least fp32."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
-from xlstm_hved_torch.nn.blocks import instance_norm
+from xlstm_hved_torch.nn.blocks import Conv3d, instance_norm
 
 # explicit padding 1 on every side, for every kernel size (the even k = 4
 # of the discriminator included)
@@ -21,7 +23,7 @@ class DiscriminatorBlock(nn.Module):
                  normalize: bool = True):
         super().__init__()
         self.normalize = normalize
-        self.Conv_0 = nn.Conv3d(cin, features, kernel, stride, padding=DISC_PADDING)
+        self.Conv_0 = Conv3d(cin, features, kernel, stride, padding=DISC_PADDING)
 
     def forward(self, x):
         x = self.Conv_0(x)

@@ -4,7 +4,9 @@
 BatchNorm (`nn.blocks.BatchNorm3d`, eps 1e-5) follows the module's mode:
 running statistics in eval mode, loaded from the flax `batch_stats` by
 `utils/convert.py`; batch statistics with flax's running-stat update in
-training mode.
+training mode. The convs compute in the model's compute dtype (bf16 under
+bf16 compute), the norms in at least fp32, and PReLU in its input's dtype,
+as the JAX modules do.
 """
 from __future__ import annotations
 

@@ -13,9 +13,11 @@ fgate bias linspace 3..6, zero gate kernels, zero norm offsets).
 - DropPath: per-sample stochastic depth on a residual branch
 - ViLBlock: pre-LN residual ViLLayer
 - ViLLayer3D: flattens a (B, C, D, H, W) volume to D*H*W tokens in
-  row-major DHW order, runs one ViLBlock in fp32, reshapes back
-- DoubleConvViL: DoubleConv, LeakyReLU(0.01), ViLLayer3D (the ViL decoder
-  block of U_HVEDConvXLSTMNet3D)
+  row-major DHW order, runs one ViLBlock in fp32, reshapes back and returns
+  the input's dtype: the fp32 island of bf16 compute, so the mLSTM (its
+  CUDA kernels included) always receives fp32
+- DoubleConvViL: DoubleConv (in the compute dtype), LeakyReLU(0.01),
+  ViLLayer3D (the ViL decoder block of U_HVEDConvXLSTMNet3D)
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xlstm_hved_torch.nn.blocks import DoubleConv
+from xlstm_hved_torch.nn.blocks import DoubleConv, at_least_fp32
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise
 from xlstm_hved_torch.ops.mlstm_cuda import mlstm_forward
 
@@ -37,8 +39,8 @@ def _normal_(t: torch.Tensor, std: float) -> torch.Tensor:
 
 
 def _layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """Normalise the last axis in fp32 (biased variance)."""
-    x32 = x.float()
+    """Normalise the last axis in at least fp32 (biased variance)."""
+    x32 = at_least_fp32(x)
     mean = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
     return (x32 - mean) * torch.rsqrt(var + eps)

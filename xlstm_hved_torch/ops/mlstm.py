@@ -70,9 +70,10 @@ def chunk_gates(igate, fgate, L: int):
     (B, NH, Sp) gates: per-chunk inclusive log-forget cumsum a, s = i - a,
     and the chunk-local cummax of s. Each is (B*NH, Sp // L, L)."""
     BH = igate.shape[0] * igate.shape[1]
-    lf = F.logsigmoid(fgate.to(torch.float32)).reshape(BH, -1, L)
+    dt = torch.promote_types(igate.dtype, torch.float32)
+    lf = F.logsigmoid(fgate.to(dt)).reshape(BH, -1, L)
     a = torch.cumsum(lf, dim=-1)
-    s = igate.to(torch.float32).reshape(BH, -1, L) - a
+    s = igate.to(dt).reshape(BH, -1, L) - a
     cm = torch.cummax(s, dim=-1).values
     return a, s, cm
 
@@ -125,9 +126,9 @@ def mlstm_chunkwise(q, k, v, igate, fgate, chunk_size: int = 128,
                     eps: float = MLSTM_EPS):
     """Linear-in-S chunkwise mLSTM, equal to `mlstm_quadratic` up to fp
     association. q, k, v: (B, NH, S, DH); igate, fgate: (B, NH, S).
-    Returns (B, NH, S, DH) fp32."""
+    Returns (B, NH, S, DH) in fp32 (fp64 for fp64 inputs)."""
     B, NH, S, DH = q.shape
-    f32 = torch.float32
+    f32 = torch.promote_types(q.dtype, torch.float32)
     qp, kp, vp, ip, fp, L = pad_to_chunks(q, k, v, igate, fgate, chunk_size)
     Sp = qp.shape[2]
     BH = B * NH
