@@ -45,7 +45,9 @@ plain twin):
              (crop 128x192x128, f_maps 4, Discriminator(64, 4), G and D in
              bf16 as the JAX CLIs default to), on a
              synthetic BraTS-layout dataset written by the port (2 training
-             and 1 validation subject of 240x240x155): cli.check --decode;
+             and 1 validation subject of 240x240x155, decoded by the native
+             decoder, the datasets' default on a host with more than one
+             core): cli.check --decode;
              cli.pretrain one epoch (the seg decoders bitwise frozen, the
              BatchNorm statistics unchanged, 1 mlstm_fwd, 1 mlstm_fwd_states
              and 1 mlstm_bwd per step, 2 mlstm_fwd per validation item);
@@ -84,6 +86,29 @@ plain twin):
              against the step without remat (bitwise with the upsampling's
              backward made deterministic; on the model's own path within
              the run-to-run noise of 4 plain runs), 2/2/2 launches per step
+ 10. zoo     the two presets without a ViL, U_HVEDNet3D (ext-resnet) and
+             FusionUNet3D (the fusion arm), at full width (f_maps 4, 4 levels,
+             seeded weights): fp32 and bf16 forwards at 128^3 and
+             128x192x128 (finite, seg in [0, 1], no mLSTM launch, ms and peak
+             memory, bf16 against fp32: mean, 99.9th percentile and max |d|)
+             and the fp32 forward at 64^3 against an fp64 copy on the card
+             (phase 4's bounds); the 15-subset sweep of a 128x192x128 volume,
+             patch 128^3: U_HVEDNet3D's hoisted sweep bit for bit its plain
+             one (every level hoisted; plain, hoisted, hoisted, plain), and
+             FusionUNet3D's plain sweep with subset_chunk 5, seconds and
+             peak; the U_HVEDNet3D G+D step at 128x192x128 at the bf16
+             defaults (Discriminator(64, 4)): finite losses, G and D move, ms
+             and peak, and with remat its G gradient bit for bit the one
+             without (phase 9's deterministic upsampling) with its peak;
+             FusionUNet3D's step raises the JAX step's error (no KL term to
+             average); cli.train --model_name U_HVEDNet3D one epoch on phase
+             7's dataset, then cli.test on its best_dice checkpoint with
+             --compute_hd95; the native NIfTI decoder on phase 7's
+             240x240x155 files, bit for bit the Python reader, and both
+             readers' seconds per subject, with phase 7's loader wait at the
+             native default (phase 7's datasets decode natively: the host has
+             more than one core); find_maximum_patch_size for the flagship
+             forward, its shape and seconds
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Bounds:
@@ -1374,6 +1399,403 @@ def check_precision(dev, gen, fp32_ref):
     return {"summary": " | ".join(lines)}
 
 
+ZOO_PRESETS = ("U_HVEDNet3D", "FusionUNet3D")
+ZOO_F64_CROP = (64, 64, 64)
+ZOO_READS = 3   # the native and Python readers' timings: median of 3
+
+
+def mlstm_counters():
+    from xlstm_hved_torch.ops import mlstm_cuda as mc
+
+    return {"mlstm_fwd": mc.run_kernel, "mlstm_fwd_states": mc.run_states_kernel,
+            "mlstm_bwd": mc.run_bwd_kernel}
+
+
+def zoo_forwards(dev, gen, lines):
+    """Phase 10, 1: the two presets' forwards in fp32 and bf16 at both crops
+    (no mLSTM launch; ms, peak, bf16 vs fp32) and the fp32 forward at 64^3
+    against an fp64 copy on the card."""
+    import copy
+
+    import torch
+    from xlstm_hved_torch.models import find_model_using_name
+
+    counters = mlstm_counters()
+    keep = torch.ones(4, dtype=torch.bool, device=dev)
+    for name in ZOO_PRESETS:
+        m32 = find_model_using_name(name, device=dev, seed=0)
+        m16 = find_model_using_name(name, device=dev, seed=0, compute_dtype="bfloat16")
+        m16.load_state_dict(m32.state_dict(), strict=True)
+        for crop in CROPS:
+            key = "x".join(map(str, crop))
+            x = torch.rand(1, 4, *crop, generator=gen, device=dev)
+            outs, ms, peak = {}, {}, {}
+            for label, model in (("fp32", m32), ("bf16", m16)):
+                run = lambda m=model: m(x, keep=keep, recon=True, deterministic=True)
+                with torch.inference_mode():
+                    for c in counters.values():
+                        c.launches = 0
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    out = run()
+                    torch.cuda.synchronize()
+                    peak[label] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                    launches = sum(c.launches for c in counters.values())
+                    ms[label] = cuda_ms(run, warmup=1, iters=3)
+                if launches:
+                    fail(f"{name} {label} forward at {crop}: {launches} mLSTM launches, "
+                         "expected none (the preset has no ViL)")
+                if out.seg.shape != (1, 3, *crop) or out.recon.shape != (1, 4, *crop):
+                    fail(f"{name} {label} forward at {crop}: shapes {tuple(out.seg.shape)}, "
+                         f"{tuple(out.recon.shape)}")
+                if out.seg.dtype != torch.float32 or not finite(out.seg, out.recon):
+                    fail(f"{name} {label} forward at {crop}: seg {out.seg.dtype}, finite "
+                         f"{finite(out.seg, out.recon)}")
+                if not (0.0 <= float(out.seg.min()) and float(out.seg.max()) <= 1.0):
+                    fail(f"{name} {label} forward at {crop}: seg outside [0, 1]")
+                outs[label] = out
+            stats = []
+            for head in ("seg", "recon"):
+                d = (getattr(outs["bf16"], head) - getattr(outs["fp32"], head)).abs().flatten()
+                p999 = float(d.kthvalue(max(1, int(round(0.999 * d.numel())))).values)
+                stats.append(f"{head} mean {float(d.mean()):.3e} p99.9 {p999:.3e} "
+                             f"max {float(d.max()):.3e}")
+            line = (f"{name} forward {key}: fp32 {ms['fp32']:.2f} ms, peak "
+                    f"{peak['fp32']:.2f} GiB; bf16 {ms['bf16']:.2f} ms, peak "
+                    f"{peak['bf16']:.2f} GiB | bf16 vs fp32 |d|: " + "; ".join(stats)
+                    + " | mLSTM launches 0")
+            print(f"  {line}", flush=True)
+            lines.append(line)
+            del x, outs, out
+        x = torch.rand(1, 4, *ZOO_F64_CROP, generator=gen, device=dev)
+        m64 = copy.deepcopy(m32).double()
+        with torch.inference_mode():
+            out = m32(x, keep=keep, recon=True, deterministic=True)
+            ref = m64(x.double(), keep=keep, recon=True, deterministic=True)
+        seg_d, rec_d = absmax(out.seg.double() - ref.seg), absmax(out.recon.double() - ref.recon)
+        if seg_d > SEG_ATOL or rec_d > RECON_ATOL:
+            fail(f"{name} fp32 forward at {ZOO_F64_CROP} against fp64: seg max|d| "
+                 f"{seg_d:.3e}, recon {rec_d:.3e} (bounds {SEG_ATOL}, {RECON_ATOL})")
+        line = (f"{name} fp32 forward {'x'.join(map(str, ZOO_F64_CROP))} vs fp64: seg max|d| "
+                f"{seg_d:.3e}, recon max|d| "
+                f"{rec_d:.3e} (bounds {SEG_ATOL}, {RECON_ATOL})")
+        print(f"  {line}", flush=True)
+        lines.append(line)
+        del m32, m16, m64, x, out, ref
+        torch.cuda.empty_cache()
+
+
+def zoo_sweeps(dev, gen, lines):
+    """Phase 10, 2: the 15-subset sweep of one 128x192x128 volume, patch
+    128^3: U_HVEDNet3D's hoisted sweep against its plain one, bitwise (plain,
+    hoisted, hoisted, plain); FusionUNet3D's plain sweep with subset_chunk 5,
+    as the eval CLI runs it."""
+    import torch
+    from xlstm_hved_torch.engine.evaluate import (default_apply_fn, make_hoisted_subset_sweep,
+                                                  make_subset_sweep)
+    from xlstm_hved_torch.models import find_model_using_name
+
+    patch = CROPS[0]
+    x = torch.rand(1, 4, *CROPS[1], generator=gen, device=dev)
+
+    def timed(sweep, model):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        result = sweep(model, x)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t, torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    model = find_model_using_name("U_HVEDNet3D", device=dev, seed=0)
+    sweeps = {"hoisted": make_hoisted_subset_sweep(model, patch, recon_channels=4),
+              "plain": make_subset_sweep(default_apply_fn(model, recon=True), patch,
+                                         recon_channels=4)}
+    outs, secs, peaks = {}, {"hoisted": [], "plain": []}, {}
+    for kind in ("plain", "hoisted", "hoisted", "plain"):
+        outs[kind], sec, peaks[kind] = timed(sweeps[kind], model)
+        secs[kind].append(sec)
+    (seg_h, rec_h), (seg_p, rec_p) = outs["hoisted"], outs["plain"]
+    if not finite(seg_h, rec_h) or not (torch.equal(seg_h, seg_p) and torch.equal(rec_h, rec_p)):
+        fail(f"U_HVEDNet3D hoisted vs plain sweep: seg max|d| {absmax(seg_h - seg_p):.3e}, "
+             f"recon {absmax(rec_h - rec_p):.3e}; expected bit for bit")
+    vol = "x".join(map(str, CROPS[1]))
+    line = (f"U_HVEDNet3D sweep {vol} (2 windows x 15 subsets): hoisted "
+            f"{secs['hoisted'][0]:.3f}, {secs['hoisted'][1]:.3f} s (peak "
+            f"{peaks['hoisted']:.2f} GiB) vs plain {secs['plain'][0]:.3f}, "
+            f"{secs['plain'][1]:.3f} s (peak {peaks['plain']:.2f} GiB); bit for bit")
+    print(f"  {line}", flush=True)
+    lines.append(line)
+    del model, sweeps, outs, seg_h, rec_h, seg_p, rec_p
+    torch.cuda.empty_cache()
+
+    model = find_model_using_name("FusionUNet3D", device=dev, seed=0)
+    sweep = make_subset_sweep(default_apply_fn(model, recon=True), patch, recon_channels=4,
+                              subset_chunk=5)
+    (segs, recs), sec, peak = timed(sweep, model)
+    if segs.shape != (15, 1, 3, *CROPS[1]) or not finite(segs, recs):
+        fail(f"FusionUNet3D sweep: shape {tuple(segs.shape)}, finite {finite(segs, recs)}")
+    # where only the first window reaches along H, the all-modality subset is
+    # that window's forward itself
+    only_first = CROPS[1][1] - patch[1]
+    with torch.inference_mode():
+        first = model(x[:, :, :, :patch[1]], recon=True, deterministic=True)
+    d_first = absmax(segs[14][..., :only_first, :] - first.seg[..., :only_first, :])
+    if d_first > SEG_ATOL:
+        fail(f"FusionUNet3D sweep subset 14 differs from its first window by {d_first:.3e}")
+    line = (f"FusionUNet3D plain sweep {vol}, subset_chunk 5: {sec:.3f} s, peak "
+            f"{peak:.2f} GiB; all-modality subset vs its first window max|d| {d_first:.3e}")
+    print(f"  {line}", flush=True)
+    lines.append(line)
+    del model, sweep, segs, recs, first, x
+    torch.cuda.empty_cache()
+
+
+def zoo_train(dev, gen, lines):
+    """Phase 10, 3: the U_HVEDNet3D G+D step at 128x192x128 at the bf16
+    defaults (G and D bf16, Discriminator(64, 4), init "reference"): G and D
+    move, losses finite, ms and peak; with remat, the G gradient bitwise the
+    one without (cuDNN deterministic, phase 9's deterministic upsampling)
+    and its peak; then FusionUNet3D's step raises as the JAX step does."""
+    import torch
+    from xlstm_hved_torch.config import TrainConfig
+    from xlstm_hved_torch.engine.train import (create_train_state, make_grad_fn,
+                                               make_train_step)
+    from xlstm_hved_torch.models import Discriminator, find_model_using_name
+    from xlstm_hved_torch.utils.subsets import subset_mask
+
+    cfg = TrainConfig()
+    crop = tuple(cfg.crop_size)
+    bf16 = torch.bfloat16
+    model = find_model_using_name("U_HVEDNet3D", device=dev, seed=0, compute_dtype="bfloat16")
+    disc = Discriminator(f_maps=cfg.disc_f_maps, kernel=cfg.disc_kernel, dtype=bf16)
+    x, mask = synthetic_batch(gen, dev, crop)
+    state = create_train_state(model, disc, cfg, seed=0, sample=x, init_scheme="reference")
+    counters = mlstm_counters()
+
+    # remat against the same gradient without it, bitwise
+    remat = find_model_using_name("U_HVEDNet3D", device=dev, compute_dtype="bfloat16",
+                                  remat=True)
+    remat.load_state_dict(model.state_dict(), strict=True)
+    keep = subset_mask(6, dev)
+    grads, peaks = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        with deterministic_upsampling():
+            for label, m in (("plain", model), ("plain again", model), ("remat", remat)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                _, grads[label] = make_grad_fn(m, disc, cfg)(x, mask, keep, deterministic=True)
+                torch.cuda.synchronize()
+                peaks[label] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for label in ("plain again", "remat"):
+        differ = [n for n, g in grads["plain"].items() if not torch.equal(grads[label][n], g)]
+        if differ:
+            fail(f"U_HVEDNet3D {label} G gradient differs from the plain one in "
+                 f"{len(differ)} of {len(grads['plain'])} tensors: {differ[:4]}")
+    n_grads = len(grads["plain"])
+    del remat, grads
+    torch.cuda.empty_cache()
+
+    step = make_train_step(model, disc, cfg)
+    g_before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    d_before = {n: p.detach().clone() for n, p in disc.named_parameters()}
+    stats_before = {n: b.clone() for n, b in model.named_buffers() if "running_" in n}
+    state, _ = step(state, x, mask)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.launches = 0
+    times, metrics = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        state, m = step(state, x, mask)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launches = sum(c.launches for c in counters.values())
+    bad = [k for m in metrics for k, v in m.items() if not math.isfinite(float(v))]
+    g_moved = sum(not torch.equal(g_before[n], p) for n, p in model.named_parameters())
+    d_moved = sum(not torch.equal(d_before[n], p) for n, p in disc.named_parameters())
+    s_moved = sum(not torch.equal(stats_before[n], b) for n, b in model.named_buffers()
+                  if n in stats_before)
+    if (bad or launches or g_moved < 0.9 * len(g_before) or d_moved != len(d_before)
+            or s_moved != len(stats_before)):
+        fail(f"U_HVEDNet3D train steps: non-finite {bad}, {launches} mLSTM launches, moved G "
+             f"{g_moved}/{len(g_before)} D {d_moved}/{len(d_before)} running statistics "
+             f"{s_moved}/{len(stats_before)}")
+    line = (f"U_HVEDNet3D bf16 G+D step {'x'.join(map(str, crop))}: "
+            f"{statistics.median(times):.1f} ms median of {['%.1f' % t for t in times]}, "
+            f"peak {peak:.2f} GiB | loss {float(metrics[-1]['loss']):.4f} | moved G "
+            f"{g_moved}/{len(g_before)} D {d_moved}/{len(d_before)} running statistics "
+            f"{s_moved}/{len(stats_before)} | G gradient with remat bitwise the plain one "
+            f"({n_grads} tensors; plain twice bitwise), peak {peaks['remat']:.2f} GiB against "
+            f"{peaks['plain']:.2f} GiB | mLSTM launches 0")
+    print(f"  {line}", flush=True)
+    lines.append(line)
+    del model, disc, state, step, x, mask, g_before, d_before
+    torch.cuda.empty_cache()
+
+    small = (32, 32, 32)
+    fusion = find_model_using_name("FusionUNet3D", device=dev, seed=0)
+    disc = Discriminator(f_maps=8, kernel=3)
+    xs, ms = synthetic_batch(gen, dev, small)
+    fstate = create_train_state(fusion, disc, TrainConfig(crop_size=small), seed=0, sample=xs)
+    try:
+        make_train_step(fusion, disc, TrainConfig(crop_size=small))(fstate, xs, ms)
+    except ValueError as e:
+        if "at least one array to stack" not in str(e):
+            raise
+        line = f"FusionUNet3D train step raises as the JAX step does: ValueError({e})"
+    else:
+        fail("FusionUNet3D train step ran; the JAX step raises (a mean over no KL terms)")
+    print(f"  {line}", flush=True)
+    lines.append(line)
+
+
+def zoo_cli(dev, root, lines):
+    """Phase 10, 4: cli.train --model_name U_HVEDNet3D one epoch on phase 7's
+    dataset at the CLI defaults, then cli.test on its best_dice checkpoint
+    with --compute_hd95; no mLSTM launch in either."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from xlstm_hved_torch.cli import test as test_main
+    from xlstm_hved_torch.cli import train as train_main
+    from xlstm_hved_torch.engine.checkpoint import CheckpointManager
+
+    counters = mlstm_counters()
+    train_dir, valid_dir = os.path.join(root, "train"), os.path.join(root, "valid")
+    out = os.path.join(root, "results")
+    name = "U_HVEDNet3D"
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    summary = train_main.main(["--device", str(dev), "--num_epochs", "1", "--train_dir",
+                               train_dir, "--valid_dir", valid_dir, "--out_dir", out,
+                               "--model_name", name])
+    torch.cuda.synchronize()
+    train_s, train_peak = time.perf_counter() - t, torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ckpt = CheckpointManager(os.path.join(out, name))
+    if not all(ckpt.exists(n) for n in ("latest", "best_vloss", "best_dice")):
+        fail(f"cli.train {name}: latest / best_vloss / best_dice missing")
+    epoch = summary["epochs"][0]
+    steps, sp = epoch["steps"], epoch["spans"]
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = test_main.main(["--device", str(dev), "--valid_dir", valid_dir, "--out_dir",
+                                 out, "--model_name", name, "--compute_hd95"])
+    torch.cuda.synchronize()
+    test_s, test_peak = time.perf_counter() - t, torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    text = buf.getvalue().splitlines()
+    launches = sum(c.launches for c in counters.values())
+    if "restored checkpoint best_dice" not in text or result["volumes"] != 1:
+        fail(f"cli.test {name}: {result['volumes']} volumes, restored line "
+             f"{'restored checkpoint best_dice' in text}")
+    for key in ("dice", "hd95"):
+        if not np.isfinite(result[key]).all():
+            fail(f"cli.test {name}: non-finite {key}: {result[key]}")
+    if launches:
+        fail(f"cli.train / cli.test {name}: {launches} mLSTM launches, expected none")
+    vol = result["per_volume"][0]
+    line = (f"cli.train --model_name {name}: {train_s:.2f} s, {steps} steps, "
+            f"{sp['train_step'] / steps:.3f} s per step, loader wait "
+            f"{sp['train_wait'] / steps:.3f} s per step, peak {train_peak:.2f} GiB | cli.test on "
+            f"best_dice with --compute_hd95: {test_s:.2f} s, volume {vol['seconds']:.2f} s "
+            f"(sweep {vol['spans']['sweep']:.3f} s, hd95 {vol['spans']['hd95']:.3f} s), peak "
+            f"{test_peak:.2f} GiB, mean Dice {float(np.mean(result['dice'])):.4f} | mLSTM "
+            "launches 0")
+    print(f"  {line}", flush=True)
+    lines.append(line)
+
+
+def zoo_native(root, lines, loader_wait):
+    """Phase 10, 5: the native decoder on phase 7's 240x240x155 subjects,
+    bitwise the Python reader on every file, and both readers' seconds per
+    subject (4 modality files), median of ZOO_READS; phase 7's loader wait,
+    at the native default."""
+    import numpy as np
+    from xlstm_hved_torch.data import native
+    from xlstm_hved_torch.data.brats import BraTSDataset
+    from xlstm_hved_torch.data.nifti import read_nifti
+
+    suffixes = ("t1c", "t1n", "t2f", "t2w")
+    files, t_native, t_python = 0, [], []
+    for split in ("train", "valid"):
+        data_dir = os.path.join(root, split)
+        if not BraTSDataset(data_dir).use_native:
+            fail(f"BraTSDataset({data_dir}) did not resolve to the native decoder on "
+                 f"{os.cpu_count()} cores")
+        for subject in sorted(os.listdir(data_dir)):
+            for suffix in suffixes + ("seg",):
+                path = os.path.join(data_dir, subject, f"{subject}-{suffix}.nii.gz")
+                a, b = native.native_read_nifti(path), read_nifti(path)[0]
+                if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                        a.view(np.uint32), b.view(np.uint32)):
+                    fail(f"native decoder: {path} differs from the Python reader")
+                files += 1
+            for _ in range(ZOO_READS):
+                t = time.perf_counter()
+                native.native_read_subject(data_dir, subject, suffixes)
+                t_native.append(time.perf_counter() - t)
+                t = time.perf_counter()
+                np.stack([read_nifti(os.path.join(data_dir, subject, f"{subject}-{s}.nii.gz"))[0]
+                          for s in suffixes])
+                t_python.append(time.perf_counter() - t)
+    line = (f"native decoder: {files} files of phase 7's {'x'.join(map(str, CLI_SHAPE))} "
+            f"subjects bit for bit the Python reader's | per subject (4 modality files, one "
+            f"thread each) {statistics.median(t_native):.3f} s against the Python reader's "
+            f"{statistics.median(t_python):.3f} s, median of "
+            f"{len(t_native)} | phase 7's loader wait at the native default: "
+            + ", ".join(f"{k} {v:.3f} s per step" for k, v in loader_wait.items()))
+    print(f"  {line}", flush=True)
+    lines.append(line)
+
+
+def zoo_patch_probe(dev, lines):
+    """Phase 10, 6: find_maximum_patch_size for the flagship forward."""
+    import torch
+    from xlstm_hved_torch.models import find_model_using_name
+    from xlstm_hved_torch.utils.schedules import DEFAULT_PATCH_SHAPES, find_maximum_patch_size
+
+    model = find_model_using_name("XLSTM_HVED", device=dev, seed=0)
+
+    @torch.inference_mode()
+    def forward(x):
+        return model(x, recon=True, deterministic=True)
+
+    t = time.perf_counter()
+    best = find_maximum_patch_size(forward, 4, DEFAULT_PATCH_SHAPES, dev)
+    sec = time.perf_counter() - t
+    if best not in DEFAULT_PATCH_SHAPES:
+        fail(f"find_maximum_patch_size returned {best}, not a shape of the list")
+    line = (f"find_maximum_patch_size, XLSTM_HVED forward: {best} of "
+            f"{len(DEFAULT_PATCH_SHAPES)} shapes, {sec:.2f} s")
+    print(f"  {line}", flush=True)
+    lines.append(line)
+    del model
+    torch.cuda.empty_cache()
+
+
+def check_zoo(dev, gen, root, loader_wait):
+    """Phase 10, the last two presets, their sweeps, training and CLIs, the
+    native decoder and the patch probe. Returns a summary."""
+    lines = []
+    zoo_forwards(dev, gen, lines)
+    zoo_sweeps(dev, gen, lines)
+    zoo_train(dev, gen, lines)
+    zoo_cli(dev, root, lines)
+    zoo_native(root, lines, loader_wait)
+    zoo_patch_probe(dev, lines)
+    return f"{len(lines)} checks: " + " | ".join(line.split(":")[0] for line in lines)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "xlstm_hved_torch")):
         fail("xlstm_hved_torch/ is not beside chip_smoke.py; run it from a checkout")
@@ -1494,13 +1916,21 @@ def main():
         rows["mlstm_fwd"]["launches_per_eval_volume"] = ev["per_volume"]
         done("eval", t0, ev["summary"])
 
-    # ---- 9. precision and remat, on its own generator
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    prec = check_precision(dev, torch.Generator(device=dev).manual_seed(9),
-                           {"forward_ms": forward_ms, "step_ms": train["step_ms"],
-                            "peak_gib": train["peak_gib"]})
-    done("precision", t0, prec["summary"])
+        # ---- 9. precision and remat, on its own generator
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        prec = check_precision(dev, torch.Generator(device=dev).manual_seed(9),
+                               {"forward_ms": forward_ms, "step_ms": train["step_ms"],
+                                "peak_gib": train["peak_gib"]})
+        done("precision", t0, prec["summary"])
+
+        # ---- 10. zoo: the last presets, the native decoder, the patch probe,
+        # on its own generator and on phase 7's dataset
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        wait = {k: v["spans"]["train_wait"] / v["steps"] for k, v in cli["report"].items()}
+        zoo = check_zoo(dev, torch.Generator(device=dev).manual_seed(10), root, wait)
+        done("zoo", t0, zoo)
 
     for name, row in rows.items():
         row["max_abs_err"] = worst[name]

@@ -76,15 +76,16 @@ def load_port(torch_module, variables):
     return torch_module.eval()
 
 
-def model_pair(name, seed=0, shape=(1, 32, 32, 32, 4)):
+def model_pair(name, seed=0, shape=(1, 32, 32, 32, 4), **overrides):
     """(port model on the CPU, jitted JAX forward(variables, x, keep) with
     recon and deterministic latents, JAX variables, NDHWC input) for one zoo
-    preset, both holding the same numpy-drawn weights."""
-    jm = jax_model(name, compute_dtype="float32", use_pallas_mlstm=False)
+    preset with its config fields `overrides`, both holding the same
+    numpy-drawn weights."""
+    jm = jax_model(name, compute_dtype="float32", use_pallas_mlstm=False, **overrides)
     x = np.random.RandomState(42).rand(*shape).astype(np.float32)
     variables = random_variables(jm, jnp.asarray(x), seed=seed, deterministic=True,
                                  recon=True)
-    tm = load_port(find_model_using_name(name, device="cpu"), variables)
+    tm = load_port(find_model_using_name(name, device="cpu", **overrides), variables)
     fwd = jax.jit(lambda v, x, keep: jm.apply(v, x, keep=keep, recon=True,
                                              deterministic=True))
     return tm, fwd, to_jax(variables), x

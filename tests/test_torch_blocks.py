@@ -10,11 +10,13 @@ import torch
 
 from _torch_port import load_port, max_abs, ncdhw, ndhwc, random_variables, to_jax
 from xlstm_hved_tpu.nn import blocks as jb
+from xlstm_hved_tpu.nn import gates as jg
 from xlstm_hved_tpu.nn.dusfe import DuSEAttention as JDuSE
 from xlstm_hved_tpu.nn.skr import SkrGate as JSkrGate
 from xlstm_hved_tpu.nn.vil import DoubleConvViL as JDoubleConvViL
 from xlstm_hved_tpu.nn.vil import ViLLayer3D as JViLLayer3D
 from xlstm_hved_torch.nn import blocks as tb
+from xlstm_hved_torch.nn import gates as tg
 from xlstm_hved_torch.nn.dusfe import DuSEAttention
 from xlstm_hved_torch.nn.skr import SkrGate
 from xlstm_hved_torch.nn.vil import DoubleConvViL, DropPath, ViLBlock, ViLLayer3D
@@ -34,8 +36,8 @@ def _compare(jmod, tmod, inputs, jkw=None, atol=ATOL, seed=0):
     j_out = jax.jit(lambda v, *a: jmod.apply(v, *a, **jkw))(to_jax(variables), *jin)
     with torch.no_grad():
         t_out = tmod(*[ncdhw(a) for a in inputs])
-    j_out = j_out if isinstance(j_out, tuple) else (j_out,)
-    t_out = t_out if isinstance(t_out, tuple) else (t_out,)
+    j_out = j_out if isinstance(j_out, (tuple, list)) else (j_out,)
+    t_out = t_out if isinstance(t_out, (tuple, list)) else (t_out,)
     assert len(j_out) == len(t_out)
     for j, t in zip(j_out, t_out):
         assert ndhwc(t).shape == j.shape
@@ -114,6 +116,163 @@ def test_decoder_stages_match_jax():
              [skip, x])
 
 
+@pytest.mark.parametrize("order", ["cr", "ce", "gcr", "cge", "bcl", "clb", "icg"])
+def test_single_conv_orders_match_jax(order):
+    """The r / e / g / b chars: ReLU, ELU, GroupNorm (flax's eps 1e-6 and
+    fast variance; 8 groups at 16 channels, 1 group at 6) and BatchNorm on
+    its running statistics; no conv bias with g or b."""
+    x = _rand(20, 1, 6, 6, 6, 6, scale=2.0) + 1.0
+    _compare(jb.SingleConv(16, 3, 1, order), tb.SingleConv(6, 16, order), [x])
+    _compare(jb.SingleConv(4, 3, 1, order, num_groups=2),
+             tb.SingleConv(6, 4, order, num_groups=2), [x])
+    conv = tb.SingleConv(6, 16, order).Conv3DFast_0
+    assert (conv.bias is None) == ("g" in order or "b" in order)
+
+
+def test_double_conv_pool_stride_and_avg_pool_match_jax():
+    x = _rand(21, 1, 8, 6, 4, 8)
+    # the mean of 8 values, summed in another order
+    np.testing.assert_allclose(ndhwc(tb.avg_pool3d(ncdhw(x))),
+                               np.asarray(jb.avg_pool3d(jnp.asarray(x))), rtol=0, atol=1e-6)
+    _compare(jb.DoubleConv(8, encoder=True, pool_stride=2, order="gce", num_groups=4),
+             tb.DoubleConv(8, 8, encoder=True, order="gce", pool_stride=2, num_groups=4), [x])
+
+
+def test_block_diag_orders():
+    """The folded-stream conv takes r and e; GroupNorm and BatchNorm would
+    mix the streams' channels and are refused, as in the JAX package."""
+    x = _rand(22, 1, 6, 6, 6, 8)
+    _compare(jb.BlockDiagSingleConv(4, 3, order="cre"),
+             tb.BlockDiagSingleConv(4, 2, 3, order="cre"), [x])
+    for order in ("gcr", "cb"):
+        with pytest.raises(NotImplementedError, match="supported"):
+            tb.BlockDiagSingleConv(4, 2, 3, order=order)
+
+
+@pytest.mark.parametrize("order", ["ilc", "cge"])
+def test_ext_resnet_blocks_match_jax(order):
+    """The residual is conv1's output after its whole order string; no
+    nonlinearity after the sum."""
+    x = _rand(23, 1, 8, 8, 8, 8)
+    _compare(jb.ExtResNetBlock(8, order=order, num_groups=4),
+             tb.ExtResNetBlock(8, 8, order, num_groups=4), [x])
+    xs = _rand(25, 1, 8, 8, 8, 4 * 3)
+    _compare(jb.BlockDiagExtResNetBlock(4, 5, order="ilc"),
+             tb.BlockDiagExtResNetBlock(4, 3, 5, "ilc"), [xs])
+
+
+@pytest.mark.parametrize("pool_type", ["max", "avg", "conv"])
+def test_encoder_stages_with_ext_resnet_and_pool_types_match_jax(pool_type):
+    """EncoderStage: max or average pooling, or the strided conv with flax's
+    "SAME" padding (an odd size included), then ext-resnet blocks; the
+    folded-stream stage with ext-resnet blocks."""
+    x = _rand(26, 1, 8, 7, 6, 4)
+    _compare(jb.EncoderStage(8, num_block=2, pool_type=pool_type, basic_module="ext_resnet",
+                             order="ilc"),
+             tb.EncoderStage(4, 8, 2, "ilc", "ext_resnet", pool_type), [x])
+    xs = _rand(27, 1, 8, 8, 8, 4 * 3)
+    _compare(jb.BlockDiagEncoderStage(4, 5, basic_module="ext_resnet", order="ilc"),
+             tb.BlockDiagEncoderStage(4, 3, 5, order="ilc", basic_module="ext_resnet"), [xs])
+
+
+def test_ext_resnet_decoder_stages_match_jax():
+    """pre_conv (1x1 with a bias) before the upsampling; then the sum join
+    (recon ladder), AttenModule2 (the MVAE seg decoder: 2 x features into
+    the block) or no skip at all, upsampling to `up_size`."""
+    skip = _rand(28, 1, 8, 8, 8, 4)
+    x = _rand(29, 1, 4, 4, 4, 8)
+    _compare(jb.DecoderStage(4, basic_module="ext_resnet", order="ilc"),
+             tb.DecoderStage(8, 4, 4, order="ilc", basic_module="ext_resnet"), [skip, x])
+    _compare(jb.DecoderStage(4, basic_module="ext_resnet", order="ilc", rsm=True, mvae=True),
+             tb.DecoderStage(8, 4, 4, rsm=True, order="ilc", basic_module="ext_resnet"),
+             [skip, x])
+    jstage = jb.DecoderStage(4, basic_module="ext_resnet", order="ilc")
+    variables = random_variables(jstage, None, jnp.asarray(x), (8, 8, 8))
+    tstage = load_port(tb.DecoderStage(8, 0, 4, order="ilc", basic_module="ext_resnet"),
+                       variables)
+    want = jax.jit(lambda v, x: jstage.apply(v, None, x, (8, 8, 8)))(to_jax(variables),
+                                                                      jnp.asarray(x))
+    with torch.no_grad():
+        got = tstage(None, ncdhw(x), [8, 8, 8])
+    assert max_abs(ndhwc(got), want) <= ATOL
+    with pytest.raises(ValueError, match="sum join"):
+        tb.DecoderStage(8, 6, 4, basic_module="ext_resnet")
+
+
+def test_decoder_stage_with_modality_skip_lists_matches_jax():
+    """The fusion seg decoder: a list of per-modality skips concatenated in
+    order before x."""
+    skips = [_rand(30 + m, 1, 8, 8, 8, 3) for m in range(4)]
+    x = _rand(34, 1, 4, 4, 4, 16)
+    jstage = jb.DecoderStage(8, order="ilc")
+    jin = [[jnp.asarray(a) for a in skips], jnp.asarray(x)]
+    variables = random_variables(jstage, *jin)
+    tstage = load_port(tb.DecoderStage(16, 12, 8, order="ilc"), variables)
+    want = jax.jit(jstage.apply)(to_jax(variables), *jin)
+    with torch.no_grad():
+        got = tstage([ncdhw(a) for a in skips], ncdhw(x))
+    assert max_abs(ndhwc(got), want) <= ATOL
+
+
+def test_atten_module_and_its_decoder_stage_match_jax():
+    """The non-MVAE RSM join (no preset reaches it): AttenModule on its own
+    and inside a DecoderStage, as the JAX aux-block test sets it up."""
+    rng = np.random.RandomState(0)
+    x = rng.rand(1, 4, 4, 4, 64).astype(np.float32)
+    encs = [rng.rand(1, 8, 8, 8, 8).astype(np.float32) for _ in range(4)]
+    recons = [rng.rand(1, 8, 8, 8, 8).astype(np.float32) for _ in range(4)]
+    jx, jencs, jrecons = jnp.asarray(x), [jnp.asarray(a) for a in encs], \
+        [jnp.asarray(a) for a in recons]
+    seg = rng.rand(1, 8, 8, 8, 6).astype(np.float32)
+    jatt = jb.AttenModule(32)
+    variables = random_variables(jatt, jnp.asarray(seg), jencs, jrecons)
+    tatt = load_port(tb.AttenModule(32, 32), variables)
+    want = jax.jit(jatt.apply)(to_jax(variables), jnp.asarray(seg), jencs, jrecons)
+    with torch.no_grad():
+        got = tatt(ncdhw(seg), [ncdhw(a) for a in encs], [ncdhw(a) for a in recons])
+    assert got.shape == (1, 6 + 32, 8, 8, 8)
+    assert max_abs(ndhwc(got), want) <= ATOL
+
+    jstage = jb.DecoderStage(features=32, rsm=True, mvae=False, order="ilc")
+    variables = random_variables(jstage, jencs, jx, None, False, jrecons)
+    tstage = load_port(tb.DecoderStage(64, 32, 32, rsm=True, mvae=False, order="ilc",
+                                       recon_ch=32), variables)
+    want = jax.jit(lambda v, e, x, r: jstage.apply(v, e, x, None, False, r))(
+        to_jax(variables), jencs, jx, jrecons)
+    with torch.no_grad():
+        got = tstage([ncdhw(a) for a in encs], ncdhw(x),
+                     recon_features=[ncdhw(a) for a in recons])
+    assert got.shape == (1, 32, 8, 8, 8)
+    assert max_abs(ndhwc(got), want) <= ATOL
+    with pytest.raises(ValueError, match="lists"):
+        tstage(ncdhw(encs[0]), ncdhw(x))
+
+
+def test_gates_match_jax():
+    """ChannelGate, ModalityGate (one scale per modality chunk), SpatialGate
+    (with and without the extra prob maps) and FusionModule in both modes,
+    with the Dense_0 / Dense_1 names of the flax tree."""
+    x = _rand(40, 2, 6, 6, 6, 16)
+    _compare(jg.ChannelGate(16), tg.ChannelGate(16), [x])
+    _compare(jg.ModalityGate(16, 4), tg.ModalityGate(16, 4), [x])
+    _compare(jg.SpatialGate(), tg.SpatialGate(), [x])
+    prob = _rand(41, 2, 6, 6, 6, 3)
+    _compare(jg.SpatialGate(), tg.SpatialGate(3), [x, prob])
+    feats = [_rand(42 + m, 1, 6, 6, 6, 4) for m in range(4)]
+    for mode in ("modal", "ch"):
+        jmod = jg.FusionModule(8, mode=mode)
+        jin = [jnp.asarray(a) for a in feats]
+        variables = random_variables(jmod, jin)
+        tmod = load_port(tg.FusionModule(16, 8, mode), variables)
+        want_out, want_gated = jax.jit(jmod.apply)(to_jax(variables), jin)
+        with torch.no_grad():
+            got_out, got_gated = tmod([ncdhw(a) for a in feats])
+        assert max_abs(ndhwc(got_out), want_out) <= ATOL
+        assert len(got_gated) == len(want_gated) == (4 if mode == "modal" else 1)
+        for g, w in zip(got_gated, want_gated):
+            assert max_abs(ndhwc(g), w) <= ATOL
+
+
 def test_skr_gate_matches_jax():
     x = _rand(12, 1, 8, 8, 8, 8)
     _compare(JSkrGate(8), SkrGate(8), [x], jkw={"train": False})
@@ -172,8 +331,8 @@ def test_decoder_stage_with_the_vil_block_matches_jax():
                              mvae=True),
              tb.DecoderStage(32, 16, 16, rsm=True, order="ilc",
                              basic_module="double_conv_vil"), [skip, x], atol=VIL_DH8_ATOL)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tb.DecoderStage(32, 16, 16, basic_module="ext_resnet")
+    with pytest.raises(ValueError, match="unknown basic_module"):
+        tb.DecoderStage(32, 16, 16, basic_module="resnet")
 
 
 def test_drop_path_is_the_identity_residual_without_a_generator():

@@ -95,6 +95,29 @@ def test_pretrain_then_train_from_its_weights(dataset, tmp_path, capsys):
         trained["model"]
 
 
+def test_train_and_eval_clis_run_the_ext_resnet_and_fusion_presets(dataset, tmp_path, capsys):
+    """cli.train --model_name U_HVEDNet3D one epoch, then cli.test on its
+    best_dice checkpoint (the hoisted sweep); FusionUNet3D evaluates through
+    the plain sweep and, having no experts, cannot train (as in the JAX
+    package)."""
+    from xlstm_hved_torch.cli import test as test_cli
+
+    out = str(tmp_path / "results")
+    argv = _argv(dataset, out) + ["--model_name", "U_HVEDNet3D"]
+    summary = train.main(argv)
+    assert summary["epochs"][0]["steps"] == 2
+    assert CheckpointManager(os.path.join(out, "U_HVEDNet3D")).exists("best_dice")
+    eval_argv = ["--device", "cpu", "--crop_size", "16", "16", "16", "--valid_dir", dataset[1],
+                 "--out_dir", out, "--compute_dtype", "float32"]
+    result = test_cli.main(eval_argv + ["--model_name", "U_HVEDNet3D"])
+    assert "restored checkpoint best_dice" in capsys.readouterr().out
+    assert result["volumes"] == 1 and result["dice"].shape == (15, 3)
+    result = test_cli.main(eval_argv + ["--model_name", "FusionUNet3D"])
+    assert result["volumes"] == 1 and math.isfinite(float(result["dice"].mean()))
+    with pytest.raises(ValueError, match="at least one array to stack"):
+        train.main(_argv(dataset, out) + ["--model_name", "FusionUNet3D"])
+
+
 def test_check_cli(dataset, tmp_path):
     out_file = str(tmp_path / "subjects.txt")
     good, bad = check.main(["--data_dir", dataset[0], "--decode", "--out_file", out_file])

@@ -2,8 +2,9 @@
 forward, backward) against their plain twins, at the ViL decoder's DH 8 and
 S 32768 too, the differentiable wrapper against autograd through the plain
 scan, the model's kernel path (the forward, the train step, the pretrain
-step) against its plain path, and the hoisted 15-subset sweep against the
-plain one. These need a CUDA
+step) against its plain path, the hoisted 15-subset sweep against the
+plain one (U_HVEDNet3D's too), the native NIfTI decoder built on that
+machine, and the patch-size probe. These need a CUDA
 device and nvcc; without a card they skip. Run them on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -329,3 +330,57 @@ def test_bf16_g_gradient_matches_jax_on_the_card(dev):
     assert mlstm_cuda.run_bwd_kernel.launches - before == 2
     share = bf16_gradient_share({n: t.double().cpu().numpy() for n, t in g.items()}, ref)
     assert share <= GRAD_SHARE, share
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_u_hvednet_hoisted_sweep_equals_plain_sweep(dev, dtype):
+    """U_HVEDNet3D has no skip-return: every level is hoisted, and the
+    hoisted sweep equals the plain one bit for bit in fp32 and bf16; no
+    mLSTM launch (the preset has no ViL)."""
+    model = find_model_using_name("U_HVEDNet3D", device=dev, seed=5, compute_dtype=dtype)
+    x = torch.rand(1, 4, 48, 32, 32, generator=torch.Generator(device=dev).manual_seed(6),
+                   device=dev)
+    patch = (32, 32, 32)
+    before = mlstm_cuda.run_kernel.launches
+    seg_h, rec_h = make_hoisted_subset_sweep(model, patch, recon_channels=4)(model, x)
+    seg_p, rec_p = make_subset_sweep(default_apply_fn(model, recon=True), patch,
+                                     recon_channels=4)(model, x)
+    torch.cuda.synchronize()
+    assert mlstm_cuda.run_kernel.launches == before
+    assert seg_h.shape == (15, 1, 3, 48, 32, 32) and torch.isfinite(rec_h).all()
+    assert torch.equal(seg_h, seg_p), float((seg_h - seg_p).abs().max())
+    assert torch.equal(rec_h, rec_p), float((rec_h - rec_p).abs().max())
+
+
+def test_native_decoder_equals_the_python_reader_on_the_card_machine(dev, tmp_path):
+    """The native decoder, built there with that machine's g++ and zlib,
+    against the Python reader on synthetic subjects, bit for bit."""
+    import os
+
+    import numpy as np
+    from xlstm_hved_torch.data import native
+    from xlstm_hved_torch.data.nifti import read_nifti
+    from xlstm_hved_torch.data.synthetic import write_synthetic_dataset
+
+    root = write_synthetic_dataset(str(tmp_path), 2, (40, 36, 24), seed=3)
+    suffixes = ("t1c", "t1n", "t2f", "t2w")
+    for subject in ("SYN-0000", "SYN-0001"):
+        got = native.native_read_subject(root, subject, suffixes)
+        want = np.stack([read_nifti(os.path.join(root, subject, f"{subject}-{s}.nii.gz"))[0]
+                         for s in suffixes])
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+        seg = os.path.join(root, subject, f"{subject}-seg.nii.gz")
+        np.testing.assert_array_equal(native.native_read_nifti(seg), read_nifti(seg)[0])
+
+
+def test_find_maximum_patch_size_returns_a_listed_shape(dev):
+    from xlstm_hved_torch.utils.schedules import DEFAULT_PATCH_SHAPES, find_maximum_patch_size
+
+    model = find_model_using_name("XLSTM_HVED", device=dev, seed=0)
+
+    @torch.inference_mode()
+    def forward(x):
+        return model(x, recon=True, deterministic=True)
+
+    assert find_maximum_patch_size(forward, device=dev) in DEFAULT_PATCH_SHAPES

@@ -88,13 +88,19 @@ def test_brats_dataset_items_and_keep_draws_match_jax(brats_dir, m_full):
 
 
 def test_brats_dataset_refuses_native_and_skips_corrupt(brats_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="native"):
-        tbrats.BraTSDataset(brats_dir, use_native=True)
+    """The native decoder gives the Python reader's items bit for bit; a
+    corrupt subject is skipped with either reader."""
+    native = tbrats.BraTSDataset(brats_dir, m_full=True, seed=7, use_native=True)
+    python = tbrats.BraTSDataset(brats_dir, m_full=True, seed=7, use_native=False)
+    assert native.use_native and not python.use_native
+    for i in (0, 3):
+        _equal_items(native.load(i), python.load(i))
     bad = tmp_path / "bad" / "SYN-0000"
     bad.mkdir(parents=True)
     for suffix in ("t1c", "t1n", "t2f", "t2w", "seg"):
         (bad / f"SYN-0000-{suffix}.nii.gz").write_bytes(b"not a gzip file")
-    assert tbrats.BraTSDataset(str(tmp_path / "bad")).load(0) is None
+    for use_native in (True, False):
+        assert tbrats.BraTSDataset(str(tmp_path / "bad"), use_native=use_native).load(0) is None
 
 
 @pytest.mark.parametrize("shuffle,shard", [(True, None), (True, (0, 2)), (True, (1, 2)),

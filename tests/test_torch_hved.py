@@ -19,7 +19,6 @@ import torch
 
 from _torch_port import max_abs, model_pair, ncdhw, ndhwc
 from xlstm_hved_tpu.utils.subsets import SUBSET_MASKS
-from xlstm_hved_torch.models import find_model_using_name
 
 @pytest.fixture(scope="module")
 def flagship():
@@ -138,9 +137,3 @@ def test_vil_decoder_preset_matches_jax(vil_decoder, subset):
                                            deterministic=True)
     seg_d = (out.seg.double() - ref64.seg).abs()
     assert seg_d.max() < 1e-3 and seg_d.mean() < 2e-5, (seg_d.max(), seg_d.mean())
-
-
-@pytest.mark.parametrize("name", ["U_HVEDNet3D", "FusionUNet3D"])
-def test_unported_presets_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        find_model_using_name(name, device="cpu")

@@ -7,8 +7,8 @@ architecture and the same training set-up in both packages.
 One compute-policy field differs: `mlstm_kernel` picks the CUDA mLSTM
 kernels where the JAX config picked its Pallas kernels. `compute_dtype`
 ("float32" or "bfloat16") and `remat` (stage rematerialisation while
-gradients are taken) are the JAX fields; `num_groups` (GroupNorm orders,
-which no preset uses) is left out.
+gradients are taken) are the JAX fields, and so is `num_groups`, the
+GroupNorm group count of the "g" layer-order char (no preset uses it).
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ class HVEDConfig:
     fusion_level: int = 4
     basic_module: str = "double_conv"   # double_conv | ext_resnet
     final_sigmoid: bool = True
+    num_groups: int = 8
 
     # MVAE latent stage
     mvae: bool = True

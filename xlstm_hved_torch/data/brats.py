@@ -24,22 +24,29 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from xlstm_hved_torch.data.nifti import load_subject
+from xlstm_hved_torch.data import native
+from xlstm_hved_torch.data.nifti import load_subject, read_nifti
 from xlstm_hved_torch.data.transforms import (background_info, extract_brain,
                                               host_zscore_nonzero, host_zscore_ref)
 
 
 class BraTSDataset:
-    """A BraTS-layout directory of subject folders. `use_native` is the JAX
-    signature's; the port has no native decoder yet and raises if one is
-    asked for."""
+    """A BraTS-layout directory of subject folders. `use_native` decodes
+    the modality files with the native decoder (`data/native.py`, one
+    thread per file) and the seg file with the Python reader; None, as in
+    the JAX package, asks for it when the host has more than one core. The
+    voxels are the same either way. The JAX dataset falls back to the
+    Python reader when its decoder does not build; here the build error
+    is raised, at construction."""
 
     def __init__(self, data_dir: str, m_full: bool = False,
                  suffixes=("t1c", "t1n", "t2f", "t2w"),
                  seed: int = 0, use_native: Optional[bool] = None):
+        if use_native is None:
+            use_native = (os.cpu_count() or 1) > 1
+        self.use_native = use_native
         if use_native:
-            raise NotImplementedError(
-                "the native NIfTI loader is not ported yet; use the Python reader")
+            native._lib()  # build (or load) the decoder now, not in the loader thread
         self.data_dir = data_dir
         self.m_full = m_full
         self.suffixes = suffixes
@@ -57,7 +64,14 @@ class BraTSDataset:
         bg_info (3,)) or None on a load error."""
         subject = self.subjects[index]
         try:
-            img, seg = load_subject(self.data_dir, subject, self.suffixes)
+            if self.use_native:
+                img = native.native_read_subject(self.data_dir, subject, self.suffixes)
+                seg_path = os.path.join(self.data_dir, subject, f"{subject}-seg.nii.gz")
+                if not os.path.exists(seg_path):
+                    seg_path = seg_path[:-3]
+                seg, _ = read_nifti(seg_path)
+            else:
+                img, seg = load_subject(self.data_dir, subject, self.suffixes)
         except (OSError, ValueError, EOFError, struct.error, zlib.error) as e:
             # a missing or corrupt file: skip the subject
             print(f"error {e} loading {subject}, skipping")

@@ -3,8 +3,9 @@ own copy of `xlstm_hved_tpu/data/nifti.py`.
 
 Covers the subset of NIfTI-1 that BraTS files use: single-file (.nii) magic
 'n+1', scalar datatypes, optional scl_slope/inter scaling, Fortran-ordered
-voxels. The JAX package's native C++ decoder (`runtime/`) is not ported
-yet; the port's datasets read through this module.
+voxels. The native decoder (`data/native.py`) returns the same voxels for
+the modality files; the datasets read the seg files, and the modality files
+when asked, through this module.
 """
 from __future__ import annotations
 

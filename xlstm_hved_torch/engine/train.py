@@ -116,6 +116,19 @@ def create_train_state(model: nn.Module, disc: nn.Module, cfg: TrainConfig, seed
                       rng=torch.Generator().manual_seed(seed), latent_rng=latent_rng)
 
 
+def mean_subset_kld(out, keep: torch.Tensor) -> torch.Tensor:
+    """The mean over levels of the subset KL of the experts, as the JAX
+    steps take it: a stack of one term per level, averaged. A model without
+    experts (the fusion and plain multi-stream arms, FusionUNet3D) has no
+    term to stack; the JAX step's `jnp.stack` raises a ValueError there, and
+    so does this, so neither package trains such a model."""
+    if not out.mu:
+        raise ValueError("need at least one array to stack: the model has no experts, "
+                         "and the objective averages one KL term per expert level")
+    return torch.stack([compute_kld_subsets(mu, lv, keep[None])
+                        for mu, lv in zip(out.mu, out.logvar)]).mean()
+
+
 def _g_objective(model: nn.Module, disc: nn.Module, cfg: TrainConfig) -> Callable:
     """The generator loss shared by make_train_step and make_grad_fn:
     (x, mask, keep, generator, deterministic, sdm) -> (loss, aux). Runs G in
@@ -130,8 +143,7 @@ def _g_objective(model: nn.Module, disc: nn.Module, cfg: TrainConfig) -> Callabl
         dice = dice_loss(out_f.seg, mask)
         m_dice = dice_loss(out_m.seg, mask)
         recon = l2_loss(out_m.recon, x)
-        kld = torch.stack([compute_kld_subsets(mu, lv, keep[None])
-                           for mu, lv in zip(out_m.mu, out_m.logvar)]).mean()
+        kld = mean_subset_kld(out_m, keep)
         f_seg, m_seg = out_f.seg.detach(), out_m.seg.detach()
         atten_f = out_f.recon.detach() * (1.0 + nested_region_weight(f_seg)[:, None])
         atten_m = out_m.recon * (1.0 + nested_region_weight(m_seg)[:, None])
@@ -312,8 +324,7 @@ def pretrain_objective(model: nn.Module, cfg: TrainConfig) -> Callable:
         out = model(x, keep=keep, seg=False, recon=True, deterministic=deterministic,
                     generator=generator)
         recon = l2_loss(out.recon, x)
-        kld = torch.stack([compute_kld_subsets(mu, lv, keep[None])
-                           for mu, lv in zip(out.mu, out.logvar)]).mean()
+        kld = mean_subset_kld(out, keep)
         loss = recon + cfg.weight_vae * kld
         return loss, dict(loss=loss.detach(), recon=recon.detach(), kld=kld.detach())
 

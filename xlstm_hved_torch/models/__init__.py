@@ -1,9 +1,11 @@
-"""Model-zoo factory for the ported HVED presets, and the discriminator."""
+"""Model-zoo factory for every HVED preset of the zoo, and the
+discriminator. The JAX registry also serves the U_HeMIS baseline, which the
+port does not have yet."""
 from __future__ import annotations
 
 import torch
 
-from xlstm_hved_torch.config import HVEDConfig, get_config
+from xlstm_hved_torch.config import MODEL_ALIASES, HVEDConfig, get_config
 from xlstm_hved_torch.models.hved import Discriminator, HVEDFusionNet, HVEDOutput
 
 
@@ -20,6 +22,10 @@ def find_model_using_name(name: str, *, device="cuda", seed: int = 0,
     """name -> HVEDFusionNet in eval mode on `device`, with weights drawn
     from `seed` (the global RNG is left as it was). Config fields can be
     overridden by keyword."""
+    if MODEL_ALIASES.get(name, name) == "U_HeMIS":
+        raise NotImplementedError(
+            "U_HeMIS (the JAX package's models/hemis.py) is not ported yet: ROADMAP.md "
+            "queue A9")
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

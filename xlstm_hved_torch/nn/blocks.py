@@ -4,8 +4,17 @@ Every 3D conv is a cuDNN `nn.Conv3d` with torch-style symmetric padding
 k // 2 (odd kernels), stride-2 included. The JAX package's block-diagonal
 convs over folded modality streams are grouped convs here: stream m owns
 channels [m*C, (m+1)*C), the group-major order of `nn.Conv3d(groups=M)`.
-Submodule names follow the flax scopes (`conv`, `Conv3DFast_0`, `block0`,
-`atten`, `basic`, ...) so a converted JAX tree loads strictly.
+Submodule names follow the flax scopes (`conv`, `Conv3DFast_0`,
+`GroupNorm_0`, `block0`, `atten`, `basic`, `pre_conv`, ...) so a converted
+JAX tree loads strictly.
+
+The layer-order string places the conv (c), the norms (i InstanceNorm,
+g GroupNorm, b BatchNorm) and the nonlinearities (l LeakyReLU 0.01, r ReLU,
+e ELU); the conv has no bias when the order holds g or b. The basic modules
+are the double conv ("double_conv"), the residual `ExtResNetBlock`
+("ext_resnet", whose decoder stage runs a 1x1 `pre_conv` before the
+upsampling and joins the skip by a sum) and the ViL decoder block
+("double_conv_vil").
 
 Precision follows the JAX modules' `dtype`: every `Conv3d` and `Linear`
 has a `compute_dtype` (None computes in the parameters' dtype, fp32, or
@@ -23,7 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_ORDER_CHARS = set("cil")
+_ORDER_CHARS = set("cilregb")
+# the folded-stream blocks normalise per channel only
+_BLOCK_DIAG_ORDER_CHARS = set("cilre")
 _HALF = (torch.bfloat16, torch.float16)
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -132,6 +143,32 @@ class BatchNorm3d(nn.BatchNorm3d):
         return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm as flax's `nn.GroupNorm` computes it, in the JAX
+    SingleConv's set-up: `num_groups` groups, or 1 when there are fewer
+    channels than that; eps 1e-6; the fast variance E[x^2] - E[x]^2 (floored
+    at 0) in at least fp32, x cast twice as flax casts it; a per-channel
+    scale and bias; returned in x's dtype."""
+
+    def __init__(self, features: int, num_groups: int = 8, eps: float = 1e-6):
+        groups = num_groups if features >= num_groups else 1
+        if features % groups:
+            raise ValueError(f"{groups} groups do not divide {features} channels")
+        super().__init__(groups, features, eps=eps)
+
+    def forward(self, x):
+        B, C = x.shape[:2]
+        shape = (1, C) + (1,) * (x.ndim - 2)
+        x32 = at_least_fp32(x).reshape(B, self.num_groups, -1)
+        mean = x32.mean(dim=-1)
+        var = torch.clamp(x32.square().mean(dim=-1) - mean.square(), min=0.0)
+        stat_shape = (B, C) + (1,) * (x.ndim - 2)
+        mean = mean.repeat_interleave(C // self.num_groups, dim=1).view(stat_shape)
+        var = var.repeat_interleave(C // self.num_groups, dim=1).view(stat_shape)
+        mul = torch.rsqrt(var + self.eps) * self.weight.view(shape)
+        return ((at_least_fp32(x) - mean) * mul + self.bias.view(shape)).to(x.dtype)
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=1e-2)
 
@@ -149,6 +186,10 @@ def max_pool3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     return F.max_pool3d(x, window, window)
 
 
+def avg_pool3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    return F.avg_pool3d(x, window, window)
+
+
 def conv3d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
            groups: int = 1, bias: bool = True) -> Conv3d:
     """Conv3d with symmetric padding k // 2."""
@@ -161,76 +202,165 @@ def channel_pool(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x.amax(dim=1, keepdim=True), x.mean(dim=1, keepdim=True)], dim=1)
 
 
-def _check_order(order: str):
-    if "c" not in order or not set(order) <= _ORDER_CHARS:
+def _order_layers(module: nn.Module, order: str, allowed: set, conv_name: str,
+                  conv: nn.Module, cin: int, features: int, num_groups: int):
+    """Register the conv and the order's norms on `module` under their flax
+    names (GroupNorm_0, BatchNorm_0, ... counted per kind, sized by where
+    they sit in the order) and return the order as a list of steps: (char,
+    the submodule's name, or None for the parameter-free chars)."""
+    if "c" not in order or not set(order) <= allowed:
         raise NotImplementedError(
-            f"layer order {order!r}: the port supports the chars {sorted(_ORDER_CHARS)} "
-            "and needs a conv")
-
-
-def _apply_order(order: str, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+            f"layer order {order!r}: the chars {sorted(allowed)} are supported here "
+            "and the order needs a conv")
+    module.add_module(conv_name, conv)
+    steps, counts, channels = [], {}, cin
     for char in order:
         if char == "c":
-            x = conv(x)
+            steps.append((char, conv_name))
+            channels = features
+        elif char in "gb":
+            kind = "GroupNorm" if char == "g" else "BatchNorm"
+            name = f"{kind}_{counts.get(kind, 0)}"
+            counts[kind] = counts.get(kind, 0) + 1
+            module.add_module(name, GroupNorm(channels, num_groups) if char == "g"
+                              else BatchNorm3d(channels))
+            steps.append((char, name))
+        else:
+            steps.append((char, None))
+    return steps
+
+
+def _run_order(module: nn.Module, steps, x: torch.Tensor) -> torch.Tensor:
+    for char, name in steps:
+        if name is not None:
+            x = getattr(module, name)(x)
         elif char == "i":
             x = instance_norm(x)
-        else:  # "l"
+        elif char == "l":
             x = leaky_relu(x)
+        elif char == "r":
+            x = F.relu(x)
+        else:  # "e"
+            x = F.elu(x)
     return x
 
 
 class SingleConv(nn.Module):
-    """One conv with norm/nonlinearity placement from the order string
-    (c conv, i InstanceNorm, l LeakyReLU; every preset uses "ilc")."""
+    """One 3^3 conv (stride `stride`) with norm/nonlinearity placement from
+    the order string; no conv bias when the order normalises by group or
+    batch. GroupNorm takes `num_groups` groups (1 below that many
+    channels); BatchNorm follows the module's train/eval mode."""
 
-    def __init__(self, cin: int, features: int, order: str = "ilc"):
+    def __init__(self, cin: int, features: int, order: str = "ilc", stride: int = 1,
+                 num_groups: int = 8):
         super().__init__()
-        _check_order(order)
-        self.order = order
-        self.Conv3DFast_0 = conv3d(cin, features, 3)
+        bias = not set("gb") & set(order)
+        self.steps = _order_layers(self, order, _ORDER_CHARS, "Conv3DFast_0",
+                                   conv3d(cin, features, 3, stride, bias=bias),
+                                   cin, features, num_groups)
 
     def forward(self, x):
-        return _apply_order(self.order, self.Conv3DFast_0, x)
+        return _run_order(self, self.steps, x)
 
 
 class DoubleConv(nn.Module):
     """Two SingleConvs: the encoder widens in conv2, the decoder narrows in
-    conv1."""
+    conv1; conv2 strides by `pool_stride`."""
 
     def __init__(self, cin: int, features: int, encoder: bool = False,
-                 order: str = "ilc"):
+                 order: str = "ilc", pool_stride: int = 1, num_groups: int = 8):
         super().__init__()
         mid = max(features // 2, cin) if encoder else features
-        self.conv1 = SingleConv(cin, mid, order)
-        self.conv2 = SingleConv(mid, features, order)
+        self.conv1 = SingleConv(cin, mid, order, num_groups=num_groups)
+        self.conv2 = SingleConv(mid, features, order, pool_stride, num_groups)
 
     def forward(self, x):
         return self.conv2(self.conv1(x))
 
 
-class BasicConv(nn.Module):
-    """Bias-free conv (grouped when groups > 1) + InstanceNorm + LeakyReLU."""
+class ExtResNetBlock(nn.Module):
+    """conv1, then conv2 on its output, plus conv1's output as the residual
+    (taken after conv1's whole order string, no nonlinearity after the sum,
+    as the JAX block does). The same channel plan in the encoder and the
+    decoder; conv2 strides by `pool_stride`."""
 
-    def __init__(self, cin: int, features: int, kernel_size: int = 1, groups: int = 1):
+    def __init__(self, cin: int, features: int, order: str = "ilc", pool_stride: int = 1,
+                 num_groups: int = 8):
         super().__init__()
+        self.conv1 = SingleConv(cin, features, order, num_groups=num_groups)
+        self.conv2 = SingleConv(features, features, order, pool_stride, num_groups)
+
+    def forward(self, x):
+        out = self.conv1(x)
+        return self.conv2(out) + out
+
+
+BASIC_MODULES = ("double_conv", "ext_resnet", "double_conv_vil")
+
+
+def make_basic_module(name: str, cin: int, features: int, encoder: bool, order: str,
+                      num_groups: int = 8, mlstm_kernel: Optional[bool] = None) -> nn.Module:
+    """The basic module `name` from cin to features channels (the ViL
+    decoder block takes `mlstm_kernel` and stays fp32)."""
+    if name == "double_conv":
+        return DoubleConv(cin, features, encoder, order, num_groups=num_groups)
+    if name == "ext_resnet":
+        return ExtResNetBlock(cin, features, order, num_groups=num_groups)
+    if name == "double_conv_vil":
+        from xlstm_hved_torch.nn.vil import DoubleConvViL  # vil imports this module
+
+        return DoubleConvViL(cin, features, order, mlstm_kernel, num_groups)
+    raise ValueError(f"unknown basic_module {name!r}; expected one of {BASIC_MODULES}")
+
+
+class BasicConv(nn.Module):
+    """Bias-free conv (grouped when groups > 1) + InstanceNorm, then
+    LeakyReLU when `relu`."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int = 1, groups: int = 1,
+                 relu: bool = True):
+        super().__init__()
+        self.relu = relu
         self.conv = conv3d(cin, features, kernel_size, groups=groups, bias=False)
 
     def forward(self, x):
-        return leaky_relu(instance_norm(self.conv(x)))
+        x = instance_norm(self.conv(x))
+        return leaky_relu(x) if self.relu else x
+
+
+def _same_padding(n: int, kernel: int = 3, stride: int = 2):
+    """flax's "SAME" padding of one axis: (lo, hi), the extra voxel high."""
+    total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+    return total // 2, total - total // 2
 
 
 class EncoderStage(nn.Module):
-    """2x max-pool + num_block encoder DoubleConvs."""
+    """2x downsampling (max or average pooling; any other `pool_type` is
+    the JAX stage's 3^3 stride-2 conv `Conv_0` with "SAME" padding) when
+    `apply_pooling`, then num_block basic modules ("double_conv" or
+    "ext_resnet") in their encoder channel plan."""
 
-    def __init__(self, cin: int, features: int, num_block: int = 1, order: str = "ilc"):
+    def __init__(self, cin: int, features: int, num_block: int = 1, order: str = "ilc",
+                 basic_module: str = "double_conv", pool_type: str = "max",
+                 apply_pooling: bool = True, num_groups: int = 8):
         super().__init__()
+        self.pool_type = pool_type if apply_pooling else None
+        if apply_pooling and pool_type not in ("max", "avg"):
+            self.Conv_0 = Conv3d(cin, features, 3, 2)
+            cin = features
         self.num_block = num_block
         for i in range(num_block):
-            self.add_module(f"block{i}", DoubleConv(cin if i == 0 else features, features,
-                                                    True, order))
+            self.add_module(f"block{i}", make_basic_module(
+                basic_module, cin if i == 0 else features, features, True, order, num_groups))
 
     def forward(self, x):
-        x = max_pool3d(x)
+        if self.pool_type == "max":
+            x = max_pool3d(x)
+        elif self.pool_type == "avg":
+            x = avg_pool3d(x)
+        elif self.pool_type is not None:
+            pads = [p for n in reversed(x.shape[2:]) for p in _same_padding(n)]
+            x = self.Conv_0(F.pad(x, pads))
         for i in range(self.num_block):
             x = getattr(self, f"block{i}")(x)
         return x
@@ -279,34 +409,99 @@ class AttenModule2(nn.Module):
         return torch.cat([seg_x * (1.0 + seg_scale), s_enc_x], dim=1)
 
 
+class AttenModule(nn.Module):
+    """The full RSM join of the non-MVAE decoder: per-stream sigmoid gates
+    on the 4 recon and the 4 encoder feature maps from their channel pools
+    beside the seg branch's, the gated recon maps compressed by a 1x1
+    BasicConv (`input_comp`) to `features` and added to the gated encoder
+    maps (which must have `features` channels together), the seg branch
+    self-gated as in AttenModule2; returns concat(seg, recon + enc). Each
+    gate pair runs weight-composed. No preset reaches it."""
+
+    def __init__(self, recon_ch: int, features: int, streams: int = 4):
+        super().__init__()
+        pooled = 2 * (streams + 1)
+        self.recon_spatial = conv3d(pooled, 4 * pooled, 7, groups=pooled)
+        self.recon_spatial2 = conv3d(4 * pooled, streams, 1)
+        self.input_comp = BasicConv(recon_ch, features, 1)
+        self.enc_spatial = conv3d(pooled, 4 * pooled, 7, groups=pooled)
+        self.enc_spatial2 = conv3d(4 * pooled, streams, 1)
+        self.seg_spatial = conv3d(2, 8, 7, groups=2)
+        self.seg_spatial2 = conv3d(8, 1, 1)
+
+    @staticmethod
+    def _gated(feats, spa_comp, grouped, point):
+        spa = torch.cat([spa_comp] + [channel_pool(f) for f in feats], dim=1)
+        scale = torch.sigmoid(_composed_pool_gate(spa, grouped, point))
+        return torch.cat([f + f * scale[:, i:i + 1] for i, f in enumerate(feats)], dim=1)
+
+    def forward(self, seg_x, enc_x: Sequence[torch.Tensor], recon_x: Sequence[torch.Tensor]):
+        spa_comp = channel_pool(seg_x)
+        comp_x = self.input_comp(
+            self._gated(recon_x, spa_comp, self.recon_spatial, self.recon_spatial2))
+        s_enc = self._gated(enc_x, spa_comp, self.enc_spatial, self.enc_spatial2)
+        seg_scale = torch.sigmoid(
+            _composed_pool_gate(spa_comp, self.seg_spatial, self.seg_spatial2))
+        return torch.cat([seg_x * (1.0 + seg_scale), comp_x + s_enc], dim=1)
+
+
 class DecoderStage(nn.Module):
-    """Trilinear upsample to the skip's size, join (AttenModule2 for the
-    MVAE seg decoder, else concat(skip, x)), then the basic module: a decoder
-    DoubleConv ("double_conv"), or `nn.vil.DoubleConvViL`
-    ("double_conv_vil", whose ViL takes `mlstm_kernel` and stays fp32)."""
+    """Trilinear upsample to the skip's size (or to `up_size` when there is
+    no skip), the join, then the basic module.
+
+    The join: with `rsm`, AttenModule2 for the MVAE seg decoder (`mvae`,
+    the default) or AttenModule over per-modality lists of encoder and
+    recon features (`recon_ch` channels in all); without, concat(skips, x)
+    for the double convs (a list of per-modality skips is concatenated in
+    its order) and skip + x for "ext_resnet", whose 1x1 `pre_conv` (with a
+    bias) first brings x to `features` channels, before the upsampling.
+    `skip_ch` is the skips' channel count in all (0 for none)."""
 
     def __init__(self, cin: int, skip_ch: int, features: int, rsm: bool = False,
                  order: str = "ilc", basic_module: str = "double_conv",
-                 mlstm_kernel: Optional[bool] = None):
+                 mlstm_kernel: Optional[bool] = None, mvae: bool = True,
+                 num_groups: int = 8, recon_ch: int = 0):
         super().__init__()
-        self.rsm = rsm
-        if rsm:
+        self.rsm, self.mvae = rsm, mvae
+        self.residual = basic_module == "ext_resnet"
+        if self.residual:
+            self.pre_conv = conv3d(cin, features, 1)
+            cin = features
+        if rsm and mvae:
             self.atten = AttenModule2()
-        if basic_module == "double_conv":
-            self.basic = DoubleConv(cin + skip_ch, features, False, order)
-        elif basic_module == "double_conv_vil":
-            from xlstm_hved_torch.nn.vil import DoubleConvViL  # vil imports this module
+        elif rsm:
+            self.atten = AttenModule(recon_ch, features)
+            skip_ch = features
+        if self.residual and not rsm:
+            if skip_ch not in (0, features):
+                raise ValueError(f"a sum join needs the skip at {features} channels, "
+                                 f"got {skip_ch}")
+            skip_ch = 0
+        self.basic = make_basic_module(basic_module, cin + skip_ch, features, False, order,
+                                       num_groups, mlstm_kernel)
 
-            self.basic = DoubleConvViL(cin + skip_ch, features, order, mlstm_kernel)
+    def forward(self, encoder_features, x, up_size=None, recon_features=None):
+        if self.residual:
+            x = self.pre_conv(x)
+        listed = isinstance(encoder_features, (list, tuple))
+        if encoder_features is None:
+            target = up_size
         else:
-            raise NotImplementedError(f"basic_module={basic_module!r} is not ported yet")
-
-    def forward(self, encoder_features, x):
-        x = resize_trilinear(x, encoder_features.shape[2:])
-        if self.rsm:
+            target = (encoder_features[0] if listed else encoder_features).shape[2:]
+        x = resize_trilinear(x, target)
+        if self.rsm and self.mvae:
             x = self.atten(x, encoder_features)
-        else:
-            x = torch.cat([encoder_features, x], dim=1)
+        elif self.rsm:
+            if not (listed and isinstance(recon_features, (list, tuple))):
+                raise ValueError("the non-MVAE RSM join needs per-modality encoder and "
+                                 "recon feature lists")
+            x = self.atten(x, encoder_features, recon_features)
+        elif encoder_features is not None:
+            if self.residual:
+                x = encoder_features + x
+            else:
+                feats = list(encoder_features) if listed else [encoder_features]
+                x = torch.cat(feats + [x], dim=1)
         return self.basic(x)
 
 
@@ -318,17 +513,18 @@ def block_diag_conv(streams: int, cin: int, features: int, kernel_size: int = 3,
 
 
 class BlockDiagSingleConv(nn.Module):
-    """SingleConv per stream on the folded layout."""
+    """SingleConv per stream on the folded layout (conv with a bias; the
+    order's norm is InstanceNorm only, per channel and so per stream)."""
 
     def __init__(self, streams: int, cin: int, features: int, stride: int = 1,
                  order: str = "ilc"):
         super().__init__()
-        _check_order(order)
-        self.order = order
-        self.conv = block_diag_conv(streams, cin, features, 3, stride)
+        self.steps = _order_layers(self, order, _BLOCK_DIAG_ORDER_CHARS, "conv",
+                                   block_diag_conv(streams, cin, features, 3, stride),
+                                   streams * cin, streams * features, 1)
 
     def forward(self, x):
-        return _apply_order(self.order, self.conv, x)
+        return _run_order(self, self.steps, x)
 
 
 class BlockDiagDoubleConv(nn.Module):
@@ -345,17 +541,36 @@ class BlockDiagDoubleConv(nn.Module):
         return self.conv2(self.conv1(x))
 
 
+class BlockDiagExtResNetBlock(nn.Module):
+    """ExtResNetBlock per stream on the folded layout."""
+
+    def __init__(self, streams: int, cin: int, features: int, order: str = "ilc"):
+        super().__init__()
+        self.conv1 = BlockDiagSingleConv(streams, cin, features, 1, order)
+        self.conv2 = BlockDiagSingleConv(streams, features, features, 1, order)
+
+    def forward(self, x):
+        out = self.conv1(x)
+        return self.conv2(out) + out
+
+
 class BlockDiagEncoderStage(nn.Module):
-    """EncoderStage per stream on the folded layout."""
+    """EncoderStage per stream on the folded layout: 2x max-pool when
+    `apply_pooling`, then num_block BlockDiagDoubleConv ("double_conv") or
+    BlockDiagExtResNetBlock ("ext_resnet") blocks."""
 
     def __init__(self, streams: int, cin: int, features: int, num_block: int = 1,
-                 apply_pooling: bool = True, order: str = "ilc"):
+                 apply_pooling: bool = True, order: str = "ilc",
+                 basic_module: str = "double_conv"):
         super().__init__()
         self.apply_pooling = apply_pooling
         self.num_block = num_block
         for i in range(num_block):
-            self.add_module(f"block{i}", BlockDiagDoubleConv(
-                streams, cin if i == 0 else features, features, True, order))
+            c = cin if i == 0 else features
+            self.add_module(f"block{i}", (
+                BlockDiagExtResNetBlock(streams, c, features, order)
+                if basic_module == "ext_resnet"
+                else BlockDiagDoubleConv(streams, c, features, True, order)))
 
     def forward(self, x):
         if self.apply_pooling:

@@ -9,10 +9,11 @@ device), the same distributions as the JAX package, not the same draws.
     the pointwise convs the JAX package builds as Conv1x1, and the
     discriminator's convs: lecun-normal, truncated; grouped Conv3d (the JAX
     block-diagonal convs): N(0, 2 / per-group fan-in); biases 0;
-  - Linear outside the ViL block (DuSE fc_*): lecun-normal, bias 0;
+  - Linear outside the ViL block (DuSE fc_*, the gates' Dense_*):
+    lecun-normal, bias 0;
   - the ViL causal Conv1d: lecun-normal, bias 0; the rest of the ViL block
     keeps its construction init, which already mirrors the JAX xLSTM init;
-  - BatchNorm weight 1, bias 0; PReLU 0.25.
+  - BatchNorm and GroupNorm weight 1, bias 0; PReLU 0.25.
 
 `reference_init`, the train CLI's default (the upstream `init_weights`):
   - every Conv3d: kaiming-normal weights with the fan-in the conv would have
@@ -20,10 +21,13 @@ device), the same distributions as the JAX package, not the same draws.
     the block-diagonal kernels: it counts the fan-in over all streams),
     biases N(0, 1);
   - every Linear (DuSE fc_*, ViL igate, fgate, proj_up, proj_down):
-    xavier-normal weights, biases N(0, 1);
+    xavier-normal weights, biases N(0, 1), but the gates' `Dense_*`
+    (ChannelGate, ModalityGate): the JAX function knows the upstream Linear
+    layers by name and these names are not among them, so it draws them as
+    it draws convs, kaiming-normal with fan-in in_features, biases N(0, 1);
   - BatchNorm weight N(1, 0.02), bias 0;
-  - the ViL Conv1d, the headwise projections, the norm weights and PReLU
-    are left as they are.
+  - the ViL Conv1d, the headwise projections, GroupNorm, the other norm
+    weights and PReLU are left as they are.
 """
 from __future__ import annotations
 
@@ -32,14 +36,15 @@ import math
 import torch
 from torch import nn
 
-from xlstm_hved_torch.nn.blocks import BatchNorm3d
+from xlstm_hved_torch.nn.blocks import BatchNorm3d, GroupNorm
 from xlstm_hved_torch.nn.skr import PReLU
 from xlstm_hved_torch.nn.vil import CausalConv1d, ViLLayer3D
 
 # JAX Conv1x1 modules among the port's plain 1x1x1 Conv3d (by the last part
 # of the module name); every other plain Conv3d is a Conv3DFast
 _LECUN_CONVS = ("x0_init", "rfinal_", "sfinal_", "final_conv", "pwconv",
-                "conv_squeeze_", "conv_comb", "enc_spatial2", "seg_spatial2")
+                "conv_squeeze_", "conv_comb", "enc_spatial2", "seg_spatial2",
+                "recon_spatial2", "pre_conv", "Conv_0")
 # flax truncates its normal initialisers at 2 sigma and rescales so that the
 # drawn values keep the target std
 _TRUNC_STD = 0.87962566103423978
@@ -93,7 +98,7 @@ def default_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
             continue
         elif isinstance(m, nn.Linear) and id(m) not in vil:
             _fill(m.weight, _truncated(1.0 / m.in_features), generator)
-        elif isinstance(m, BatchNorm3d):
+        elif isinstance(m, (BatchNorm3d, GroupNorm)):
             _fill(m.weight, lambda t, g: t.fill_(1.0), generator)
         elif isinstance(m, PReLU):
             _fill(m.weight, lambda t, g: t.fill_(0.25), generator)
@@ -108,10 +113,12 @@ def default_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
 def reference_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw `module`'s parameters with the upstream init_weights
     distribution as the JAX `reference_init` applies it."""
-    for m in module.modules():
+    for name, m in module.named_modules():
         if isinstance(m, nn.Conv3d):
             fan = m.in_channels * math.prod(m.kernel_size)
             _fill(m.weight, _normal(math.sqrt(2.0 / fan)), generator)
+        elif isinstance(m, nn.Linear) and name.rsplit(".", 1)[-1].startswith("Dense_"):
+            _fill(m.weight, _normal(math.sqrt(2.0 / m.in_features)), generator)
         elif isinstance(m, nn.Linear):
             std = math.sqrt(2.0 / (m.in_features + m.out_features))
             _fill(m.weight, _normal(std), generator)

@@ -248,9 +248,9 @@ class DoubleConvViL(nn.Module):
     `HVEDConfig.mlstm_kernel=False` puts both ViL sites on the plain scan."""
 
     def __init__(self, cin: int, features: int, order: str = "ilc",
-                 mlstm_kernel: Optional[bool] = None):
+                 mlstm_kernel: Optional[bool] = None, num_groups: int = 8):
         super().__init__()
-        self.double_conv = DoubleConv(cin, features, False, order)
+        self.double_conv = DoubleConv(cin, features, False, order, num_groups=num_groups)
         self.vil = ViLLayer3D(features, mlstm_kernel=mlstm_kernel)
 
     def forward(self, x):

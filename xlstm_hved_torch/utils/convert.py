@@ -11,8 +11,10 @@ and `last/kernel` alike):
   its bias (M, cout) is flattened the same way
 - CausalConv1d kernel (k, 1, C)                 -> (C, 1, k)
 - Dense kernel (in, out)                        -> Linear weight (out, in)
+  (DuSE's fc_*, the gates' Dense_0 / Dense_1)
 - BatchNorm scale / bias / mean / var           -> weight / bias /
   running_mean / running_var (plus num_batches_tracked = 0)
+- GroupNorm scale / bias                        -> weight / bias
 - PReLU alpha ()                                -> weight (1,)
 - every other leaf (LinearHeadwiseExpand weight (NH, out_d, in_d), norm
   weights, learnable_skip, 1D biases) is kept as it is.
