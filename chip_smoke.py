@@ -8,15 +8,19 @@ no phase catches its own failure and nothing falls back to the CPU or to a
 plain twin):
  1. device   the card's name and power limit from nvidia-smi; TF32 off
  2. build    every CUDA source of the port (mlstm_fwd.cu with its states
-             variant, mlstm_bwd.cu), one nvcc each, all started together;
+             variant, mlstm_bwd.cu, both including mlstm_wide.cuh), one
+             nvcc each, all started together;
              ptxas's registers, shared memory and spills for each CUDA kernel
  3. kernel   each kernel (mlstm_fwd, mlstm_fwd_states, mlstm_bwd; one call of
-             each is three CUDA launches) against its plain PyTorch twin at
-             the shapes the main paths give it and on the edge cases (one
-             chunk, padding, extreme gates, the e^{-m} branch, DH 8, more
-             blocks than one wave), and at the ViL decoder's DH 8, S 32768 and
-             49152 (256 and 384 chunks in one scan), with its time beside the
-             twin's and its bound; mlstm_fwd's h bitwise equal to
+             each is three CUDA launches, four and ten on the wide path)
+             against its plain PyTorch twin at the shapes the main paths
+             give it and on the edge cases (one chunk, padding, extreme
+             gates, the e^{-m} branch, DH 8, more blocks than one wave), at
+             the ViL decoder's DH 8, S 32768 and 49152 (256 and 384 chunks
+             in one scan), and at the xLSTM families' head widths on the
+             wide path (phase 11's shapes: DH 32 to 384, odd widths DH 15
+             and 45 zero-padded, one chunk with S < L), with its time beside
+             the twin's and its bound; mlstm_fwd's h bitwise equal to
              mlstm_fwd_states'; then the
              differentiable wrapper's h and five gradients against the plain
              chunkwise scan and its autograd at S 2000 and 6144 (the twins
@@ -109,6 +113,25 @@ plain twin):
              native default (phase 7's datasets decode natively: the host has
              more than one core); find_maximum_patch_size for the flagship
              forward, its shape and seconds
+ 11. xlstm   the xLSTM model families at full width, fp32, seeded weights,
+             each forward through the kernels against the same forward
+             through the plain mLSTM (phase 4's bound on every output),
+             finite, with one mlstm_fwd launch per ViL layer, its ms and peak
+             memory: UXlstmEnc and UXlstmBot from build_uxlstm_from_plans on
+             the 3-D plans (patch 128^3, 6 stages, 32...320 features; ViLs at
+             S 4096 DH 128, S 512 DH 160, channel tokens S 320 DH 32, the
+             bottleneck S 64 DH 160) and the 2-D plans (192x160, 7 stages,
+             32...512, the last pool [2, 1]; ViLs at S 1920 DH 64, channel
+             tokens S 512 DH 60 and DH 15, the bottleneck S 15 DH 256), 4
+             channels, 4 classes, deep supervision, batch 2;
+             VisionLSTM (224^2, patch 16, dim 192, depth 12: S 196 DH 96),
+             VisionLSTM3D (128^3, patch 8: S 4096 DH 96), ViL3DPatchEncoder
+             at 128^3 (S 32768 DH 16 to S 64 DH 128), batch 1; U_HeMIS at
+             128^3 from the registry (no mLSTM; a zeroed modality inferred
+             equals the keep mask given). Then one UXlstmEnc 3-D backward at
+             batch 2 of a seeded weighted sum of its outputs through the
+             kernels against the plain mLSTM's, per tensor to phase 6's rule
+             (cuDNN deterministic), 3 / 3 / 3 launches, ms and peak
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Bounds:
@@ -250,8 +273,11 @@ def ptxas_report(log: str):
     lines, name, frame = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(mlstm_[a-z_]+?_kernel)ILi(\d+)E", line)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else line.split("'")[1]
+            # narrow kernels carry their DH, the wide ones their mode
+            m = re.search(r"((?:mlstm|wide)_[a-z_]+?_kernel)(?:ILi(\d+)E|ILN\w*?E(\d+)E)?",
+                          line)
+            arg = m and (m.group(2) or m.group(3))
+            name = (f"{m.group(1)}<{arg}>" if arg else m.group(1)) if m else line.split("'")[1]
         elif "stack frame" in line:
             frame = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -260,41 +286,48 @@ def ptxas_report(log: str):
     return lines
 
 
-def mlstm_cost(BH: int, Sp: int, DH: int, L: int, states: bool = False):
-    """(bytes, fp32 operations) the chunkwise forward needs on prepared
-    inputs: q, k, v, a, s, cm read once, out written once (and, with
-    `states`, each chunk's entry C*, n*, m*); per chunk the causal L(L+1)/2
-    pairs cost a q.k dot, a decay exp and a weighted v row, plus the q.C*
-    readout and the C*/n* update."""
-    nchunks = Sp // L
-    nbytes = 4 * (3 * BH * Sp * DH + 3 * BH * Sp + BH * Sp * DH)
+def chunk_rows(S: int, L: int):
+    """The rows of each chunk of a sequence of S tokens in chunks of L: whole
+    chunks, then the last one's true rows (the padding past S does no work)."""
+    return [L] * (S // L) + ([S % L] if S % L else [])
+
+
+def mlstm_cost(BH: int, S: int, DH: int, L: int, states: bool = False):
+    """(bytes, fp32 operations) the chunkwise forward needs at the true
+    sequence length S and head width DH: q, k, v, a, s, cm read once, out
+    written once (and, with `states`, each chunk's entry C*, n*, m*); per
+    chunk of r rows the causal r(r+1)/2 pairs cost a q.k dot, a decay exp and
+    a weighted v row, plus the q.C* readout and the C*/n* update."""
+    rows = chunk_rows(S, L)
+    nbytes = 4 * (3 * BH * S * DH + 3 * BH * S + BH * S * DH)
     if states:
-        nbytes += 4 * BH * nchunks * (DH * DH + DH + 1)
-    pairs = L * (L + 1) // 2
-    per_chunk = (pairs * (2 * DH + 4 + 2 * DH)      # q.k, decay, attn*v, rowsum
-                 + 2 * L * DH * DH + 2 * L * DH     # q.C*, q.n*
-                 + 2 * L * DH * DH + 3 * L * DH     # C* and n* update
-                 + 12 * L)                          # per-row stabilisers, denominator
-    return nbytes, BH * nchunks * per_chunk
+        nbytes += 4 * BH * len(rows) * (DH * DH + DH + 1)
+    ops = sum(r * (r + 1) // 2 * (2 * DH + 4 + 2 * DH)     # q.k, decay, attn*v, rowsum
+              + 2 * r * DH * DH + 2 * r * DH               # q.C*, q.n*
+              + 2 * r * DH * DH + 3 * r * DH               # C* and n* update
+              + 12 * r                                     # per-row stabilisers, denominator
+              for r in rows)
+    return nbytes, BH * ops
 
 
-def mlstm_bwd_cost(BH: int, Sp: int, DH: int, L: int):
-    """(bytes, fp32 operations) of the reverse-chunk backward on prepared
-    inputs: q, k, v, g, a, s, cm and the entry states read once; dq, dk,
-    dv, ds, dax written once. Per chunk: the readout recomputed once (as the
-    forward), then per causal pair dattn = g'.v + drow, dqk, and the dq, dk,
-    dv and ds sums; per row the denominator adjoints and the readout's
-    C*/n* terms; per key the state-update adjoint; the carry update."""
-    nchunks = Sp // L
-    nbytes = 4 * (4 * BH * Sp * DH + 3 * BH * Sp + BH * nchunks * (DH * DH + DH + 1)
-                  + 3 * BH * Sp * DH + 2 * BH * Sp)
-    pairs = L * (L + 1) // 2
-    per_chunk = (pairs * (4 * DH + 4) + L * (2 * DH * DH + 2 * DH + 12)   # recompute
-                 + pairs * (8 * DH + 4)                      # dattn, dqk, dq/dk/dv/ds sums
-                 + L * (4 * DH * DH + 9 * DH + 10)           # row adjoints, dC/dn reads
-                 + L * (4 * DH * DH + 6 * DH + 4)            # state-update adjoint
-                 + 4 * DH * DH)                              # dm and the carry update
-    return nbytes, BH * nchunks * per_chunk
+def mlstm_bwd_cost(BH: int, S: int, DH: int, L: int):
+    """(bytes, fp32 operations) of the reverse-chunk backward at the true S
+    and DH: q, k, v, g, a, s, cm and the entry states read once; dq, dk, dv,
+    ds, dax written once. Per chunk of r rows: the readout recomputed once
+    (as the forward), then per causal pair dattn = g'.v + drow, dqk, and the
+    dq, dk, dv and ds sums; per row the denominator adjoints and the
+    readout's C*/n* terms; per key the state-update adjoint; the carry
+    update."""
+    rows = chunk_rows(S, L)
+    nbytes = 4 * (4 * BH * S * DH + 3 * BH * S + BH * len(rows) * (DH * DH + DH + 1)
+                  + 3 * BH * S * DH + 2 * BH * S)
+    ops = sum(r * (r + 1) // 2 * (4 * DH + 4) + r * (2 * DH * DH + 2 * DH + 12)  # recompute
+              + r * (r + 1) // 2 * (8 * DH + 4)             # dattn, dqk, dq/dk/dv/ds sums
+              + r * (4 * DH * DH + 9 * DH + 10)             # row adjoints, dC/dn reads
+              + r * (4 * DH * DH + 6 * DH + 4)              # state-update adjoint
+              + 4 * DH * DH                                 # dm and the carry update
+              for r in rows)
+    return nbytes, BH * ops
 
 
 def bound_ms(nbytes: int, flops: int):
@@ -333,10 +366,27 @@ KERNEL_CASES = (("S4096", 1, 4, 4096, 16, "realistic"),
                 ("B2_S6144", 2, 4, 6144, 16, "realistic"),          # 384 blocks, > 1 wave
                 # the ViL decoder of U_HVEDConvXLSTMNet3D: 32^3 / 32x48x32 stage-0 tokens
                 ("S32768_DH8", 1, 4, 32768, 8, "realistic"),
-                ("S49152_DH8", 1, 4, 49152, 8, "realistic"))
+                ("S49152_DH8", 1, 4, 49152, 8, "realistic"),
+                # the wide path, at the xLSTM families' widths (phase 11):
+                # UXlstmEnc 3-D at batch 2, stages 3 / 4 / 5 (channel tokens)
+                ("S4096_DH128", 2, 4, 4096, 128, "realistic"),
+                ("S512_DH160", 2, 4, 512, 160, "realistic"),
+                ("S320_DH32_padded", 2, 4, 320, 32, "realistic"),   # 384 = 3 chunks
+                # VisionLSTM3D (128^3, patch 8) and a ViT-B-wide VisionLSTM
+                ("S4096_DH96", 1, 4, 4096, 96, "realistic"),
+                ("S196_DH384", 1, 4, 196, 384, "realistic"),
+                ("S4096_DH128_denominator", 1, 4, 4096, 128, "denominator"),
+                # odd widths, zero-padded: the 2-D stage 6's channel tokens
+                # (DH 15 -> 16), DH 45 -> 64
+                ("S512_DH15", 2, 2, 512, 15, "realistic"),
+                ("S1000_DH45", 1, 4, 1000, 45, "realistic"),
+                # one chunk with S < L: the 3-D and 2-D UXlstmBot bottlenecks
+                ("S64_DH160_one_chunk", 2, 4, 64, 160, "realistic"),
+                ("S15_DH256_one_chunk", 2, 4, 15, 256, "realistic"))
 # the cases timed into the kernels line: the main paths' bottleneck shape,
-# and the ViL decoder's under their own keys
-TIMED_CASES = ("S4096", "S32768_DH8", "S49152_DH8")
+# and the ViL decoder's and the wide path's under their own keys
+TIMED_CASES = ("S4096", "S32768_DH8", "S49152_DH8", "S4096_DH128", "S512_DH160",
+               "S320_DH32_padded", "S4096_DH96", "S196_DH384")
 # kernel -> (source file, line of the Pallas kernel body it replaces)
 KERNELS = {"mlstm_fwd": ("mlstm_fwd.cu", 40),
            "mlstm_fwd_states": ("mlstm_fwd.cu", 107),
@@ -366,24 +416,26 @@ def check_kernels(dev):
         q, k, v, ig, fg = mlstm_inputs(gen, dev, B, NH, S, DH, kind)
         prepared = mc.prepare(q, k, v, ig, fg, 128)
         qf, kf, vf, a, s, cm = prepared
-        BH, Sp, _ = qf.shape
+        BH, _, DP = qf.shape    # DP: DH zero-padded to the kernels' width
         L = a.shape[-1]
         g = torch.randn(qf.shape, generator=gen, device=dev)
+        g[..., DH:] = 0.0        # as mlstm_backward pads the cotangent
         with torch.inference_mode():
-            out = mc.run_kernel(*prepared)
-            ref_states = mc.mlstm_forward_states_reference(*prepared)
+            out = mc.run_kernel(*prepared, dh=DH)
+            ref_states = mc.mlstm_forward_states_reference(*prepared, dh=DH)
             ref = ref_states[0]
             # the user-facing wrapper (prep + launch + unpad) on the raw inputs
             full = mc.mlstm_forward(q, k, v, ig, fg, chunk_size=128)
-            states = mc.run_states_kernel(*prepared)
+            states = mc.run_states_kernel(*prepared, dh=DH)
             if not torch.equal(out, states[0]):
                 fail(f"{label}: mlstm_fwd's h differs from mlstm_fwd_states' "
                      f"(max|d| {absmax(out - states[0]):.3e})")
             bwd_args = (qf, kf, vf, g, a, s, cm, *ref_states[1:])
-            grads = mc.run_bwd_kernel(*bwd_args)
-            ref_grads = mc.mlstm_backward_reference(*bwd_args)
+            grads = mc.run_bwd_kernel(*bwd_args, dh=DH)
+            ref_grads = mc.mlstm_backward_reference(*bwd_args, dh=DH)
             torch.cuda.synchronize()
-            err = max(absmax(out - ref), absmax(full - ref.reshape(B, NH, -1, DH)[:, :, :S]))
+            err = max(absmax(out - ref),
+                      absmax(full - ref.reshape(B, NH, -1, DP)[:, :, :S, :DH]))
             scaled = err / absmax(ref)
             if not (finite(out) and err <= KERNEL_ATOL and scaled <= KERNEL_SCALED):
                 fail(f"mlstm_fwd {label}: max|d| {err:.3e}, scaled {scaled:.3e} "
@@ -401,19 +453,22 @@ def check_kernels(dev):
             if not (finite(*grads) and max(b_errs) <= BWD_SCALED):
                 fail(f"mlstm_bwd {label}: scaled dq/dk/dv/ds/dax "
                      f"{['%.3e' % e for e in b_errs]} (bound {BWD_SCALED})")
-            calls = {"mlstm_fwd": lambda: mc.run_kernel(*prepared),
-                     "mlstm_fwd_states": lambda: mc.run_states_kernel(*prepared),
-                     "mlstm_bwd": lambda: mc.run_bwd_kernel(*bwd_args)}
+            calls = {"mlstm_fwd": lambda: mc.run_kernel(*prepared, dh=DH),
+                     "mlstm_fwd_states": lambda: mc.run_states_kernel(*prepared, dh=DH),
+                     "mlstm_bwd": lambda: mc.run_bwd_kernel(*bwd_args, dh=DH)}
             ms = {name: cuda_ms(fn) for name, fn in calls.items()}
             dev_ms = {name: device_ms(fn) for name, fn in calls.items()}
             plain_ms = {
-                "mlstm_fwd": cuda_ms(lambda: mc.mlstm_forward_reference(*prepared), 2, 10),
+                "mlstm_fwd": cuda_ms(lambda: mc.mlstm_forward_reference(*prepared, dh=DH), 2, 10),
                 "mlstm_fwd_states": cuda_ms(
-                    lambda: mc.mlstm_forward_states_reference(*prepared), 2, 10),
-                "mlstm_bwd": cuda_ms(lambda: mc.mlstm_backward_reference(*bwd_args), 1, 5)}
-        costs = {"mlstm_fwd": mlstm_cost(BH, Sp, DH, L),
-                 "mlstm_fwd_states": mlstm_cost(BH, Sp, DH, L, states=True),
-                 "mlstm_bwd": mlstm_bwd_cost(BH, Sp, DH, L)}
+                    lambda: mc.mlstm_forward_states_reference(*prepared, dh=DH), 2, 10),
+                "mlstm_bwd": cuda_ms(
+                    lambda: mc.mlstm_backward_reference(*bwd_args, dh=DH), 1, 5)}
+        # the work at the true width and length: the padded columns and rows
+        # are zeros
+        costs = {"mlstm_fwd": mlstm_cost(BH, S, DH, L),
+                 "mlstm_fwd_states": mlstm_cost(BH, S, DH, L, states=True),
+                 "mlstm_bwd": mlstm_bwd_cost(BH, S, DH, L)}
         for name, e in (("mlstm_fwd", err), ("mlstm_fwd_states", s_abs), ("mlstm_bwd", b_abs)):
             worst[name] = max(worst[name], e)
         print(f"  {label}: fwd max|d| {err:.3e} scaled {scaled:.3e} | states scaled "
@@ -1783,6 +1838,224 @@ def zoo_patch_probe(dev, lines):
     torch.cuda.empty_cache()
 
 
+XLSTM_PLANS_3D = {"patch_size": [128, 128, 128], "conv_kernel_sizes": [[3, 3, 3]] * 6,
+                  "pool_op_kernel_sizes": [[1, 1, 1]] + [[2, 2, 2]] * 5,
+                  "n_conv_per_stage_encoder": [2] * 6, "n_conv_per_stage_decoder": [2] * 5,
+                  "UNet_base_num_features": 32, "unet_max_num_features": 320}
+# the last pool halves only the 192 axis: 160 / 32 = 5 cannot be halved
+# again (nnU-Net pools an axis no further then); with [2, 2] there the
+# channel-token schedule's floor division (3 x 2 voxels, ViL dim 6) and the
+# stride-2 convs' map (3 x 3) disagree, and neither package builds the net
+XLSTM_PLANS_2D = {"patch_size": [192, 160], "conv_kernel_sizes": [[3, 3]] * 7,
+                  "pool_op_kernel_sizes": [[1, 1]] + [[2, 2]] * 5 + [[2, 1]],
+                  "n_conv_per_stage_encoder": [2] * 7, "n_conv_per_stage_decoder": [2] * 6,
+                  "UNet_base_num_features": 32, "unet_max_num_features": 512}
+
+
+def xlstm_models():
+    """Phase 11's forwards: (label, build(mlstm_kernel) -> module, input
+    shape, ViL layers, so mlstm_fwd launches per forward)."""
+    from xlstm_hved_torch.models import build_uxlstm_from_plans
+    from xlstm_hved_torch.models.vision_lstm import (ViL3DPatchEncoder, VisionLSTM,
+                                                     VisionLSTM3D)
+
+    def plans(p, variant):
+        return lambda k: build_uxlstm_from_plans(p, 4, 4, True, variant, mlstm_kernel=k)
+
+    return (("UXlstmEnc 3-D", plans(XLSTM_PLANS_3D, "enc"), (2, 4, 128, 128, 128), 3),
+            ("UXlstmBot 3-D", plans(XLSTM_PLANS_3D, "bot"), (2, 4, 128, 128, 128), 1),
+            ("UXlstmEnc 2-D", plans(XLSTM_PLANS_2D, "enc"), (2, 4, 192, 160), 3),
+            ("UXlstmBot 2-D", plans(XLSTM_PLANS_2D, "bot"), (2, 4, 192, 160), 1),
+            ("VisionLSTM", lambda k: VisionLSTM(mlstm_kernel=k), (1, 3, 224, 224), 12),
+            ("VisionLSTM3D", lambda k: VisionLSTM3D(mlstm_kernel=k), (1, 4, 128, 128, 128), 12),
+            ("ViL3DPatchEncoder", lambda k: ViL3DPatchEncoder(mlstm_kernel=k),
+             (1, 4, 128, 128, 128), 8))
+
+
+def _seeded_pair(build, dev, seed: int = 0):
+    """The model through the kernels and its twin through the plain mLSTM,
+    on the same seeded weights, in eval mode on `dev`."""
+    import torch
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = build(None)
+    plain = build(False)
+    plain.load_state_dict(model.state_dict())
+    return model.to(dev).eval(), plain.to(dev).eval()
+
+
+def _outputs(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def xlstm_forwards(dev, gen, lines):
+    """Phase 11, 1: every xLSTM model's forward through the kernels against
+    the plain mLSTM (phase 4's bound), its launches, ms and peak. Returns
+    the mlstm_fwd launches of the kernel forwards."""
+    import torch
+    from xlstm_hved_torch.ops import mlstm_cuda as mc
+
+    total = 0
+    for label, build, shape, vil_layers in xlstm_models():
+        model, plain = _seeded_pair(build, dev)
+        x = torch.rand(*shape, generator=gen, device=dev)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            mc.run_kernel.launches = 0
+            out = _outputs(model(x))
+            torch.cuda.synchronize()
+            launches = mc.run_kernel.launches
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            ref = _outputs(plain(x))
+            if launches != vil_layers:
+                fail(f"{label} forward: {launches} mlstm_fwd launches, expected {vil_layers}")
+            if not finite(*out):
+                fail(f"{label} forward: non-finite output")
+            errs = [absmax(o - r) for o, r in zip(out, ref)]
+            if max(errs) > SEG_ATOL:
+                fail(f"{label} forward: kernel vs plain mLSTM max|d| {max(errs):.3e} "
+                     f"(bound {SEG_ATOL})")
+            ms = cuda_ms(lambda: model(x), warmup=1, iters=3)
+            ms_plain = cuda_ms(lambda: plain(x), warmup=1, iters=3)
+        line = (f"{label} forward {tuple(shape)}: {ms:.2f} ms with the kernels, {ms_plain:.2f} "
+                f"ms with the plain mLSTM, peak {peak:.2f} GiB | outputs "
+                f"{[tuple(o.shape) for o in out]}, kernel vs plain max|d| {max(errs):.3e} "
+                f"(max|out| {max(absmax(o) for o in out):.3e}) | mlstm_fwd launches {launches}")
+        print(f"  {line}", flush=True)
+        lines.append(line)
+        total += launches
+        del model, plain, x, out, ref
+        torch.cuda.empty_cache()
+    return total
+
+
+def xlstm_hemis(dev, gen, lines):
+    """Phase 11, 2: U_HeMIS at 128^3 from the registry: finite, seg a
+    softmax, no mLSTM launch; a zeroed modality inferred equals the keep
+    mask given."""
+    import torch
+    from xlstm_hved_torch.models import find_model_using_name
+    from xlstm_hved_torch.ops import mlstm_cuda as mc
+
+    model = find_model_using_name("U_HeMIS", device=dev, seed=0)
+    x = torch.rand(1, 4, 128, 128, 128, generator=gen, device=dev)
+    x[:, 2] = 0.0
+    keep = torch.tensor([True, True, False, True], device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mc.run_kernel.launches = 0
+        seg, recon = model(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        seg_k, recon_k = model(x, keep=keep)
+        if mc.run_kernel.launches:
+            fail(f"U_HeMIS: {mc.run_kernel.launches} mlstm_fwd launches, expected 0")
+        if seg.shape != (1, 3, 128, 128, 128) or recon.shape != (1, 4, 128, 128, 128):
+            fail(f"U_HeMIS shapes {tuple(seg.shape)}, {tuple(recon.shape)}")
+        if not finite(seg, recon) or absmax(seg.sum(1) - 1.0) > 1e-5:
+            fail("U_HeMIS: non-finite output or seg not a softmax over classes")
+        d_keep = max(absmax(seg - seg_k), absmax(recon - recon_k))
+        if d_keep != 0.0:
+            fail(f"U_HeMIS: the inferred keep mask differs from the given one ({d_keep:.3e})")
+        ms = cuda_ms(lambda: model(x), warmup=1, iters=3)
+    line = (f"U_HeMIS forward (1, 4, 128, 128, 128): {ms:.2f} ms, peak {peak:.2f} GiB, "
+            f"a modality zeroed: inferred keep == given keep bit for bit, mlstm_fwd launches 0")
+    print(f"  {line}", flush=True)
+    lines.append(line)
+    del model, x, seg, recon, seg_k, recon_k
+    torch.cuda.empty_cache()
+
+
+def xlstm_gradient(dev, gen, lines):
+    """Phase 11, 3: one UXlstmEnc 3-D backward at batch 2 of a seeded
+    weighted sum of its deep-supervision outputs, through the kernels
+    against the plain mLSTM, per tensor to phase 6's rule. Returns the
+    launches of the kernel path."""
+    import torch
+
+    label, build, shape, vil_layers = xlstm_models()[0]
+    model, plain = _seeded_pair(build, dev)
+    x = torch.rand(*shape, generator=gen, device=dev)
+    with torch.no_grad():
+        weights = [torch.randn(o.shape, generator=gen, device=dev)
+                   for o in _outputs(model(x[:1]))]
+        weights = [w.expand(shape[0], *w.shape[1:]) for w in weights]
+    counters = mlstm_counters()
+
+    def grads(m):
+        params = [p for _, p in m.named_parameters()]
+        loss = sum((o * w).sum() for o, w in zip(_outputs(m(x)), weights))
+        return float(loss.detach()), torch.autograd.grad(loss, params)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters.values():
+            fn.launches = 0
+        loss_k, got = grads(model)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        launches = {name: fn.launches for name, fn in counters.items()}
+        loss_p, want = grads(plain)
+        _, want2 = grads(plain)   # the run-to-run noise of the atomics left in the backward
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # the time of a warm call on cuDNN's default algorithms (the first call
+    # above also picks and sets up the deterministic ones)
+    timed = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        grads(model)
+        torch.cuda.synchronize()
+        timed.append(1e3 * (time.perf_counter() - t0))
+    step_ms = timed[-1]
+    if launches != dict.fromkeys(counters, vil_layers):
+        fail(f"{label} gradient: launches {launches}, expected {vil_layers} of each")
+    names = [n for n, _ in model.named_parameters()]
+    floor = GRAD_FLOOR * max(absmax(t) for t in want)
+    table = []
+    for name, g, r, r2 in zip(names, got, want, want2):
+        if not finite(g):
+            fail(f"{label} gradient {name}: not finite")
+        err, top = absmax(g - r), absmax(r)
+        table.append((err / (GRAD_SCALED * top + floor), name, err, absmax(r2 - r), top))
+    table.sort(reverse=True)
+    share, name, err, noise, top = table[0]
+    if share > 1.0:
+        fail(f"{label} gradient {name}: kernel vs plain max|d| {err:.3e}, max|ref| {top:.3e}, "
+             f"plain vs plain {noise:.3e} (bound {GRAD_SCALED} * max|ref| + {floor:.3e})")
+    vil_share = max(t[0] for t in table if ".vil." in t[1])
+    line = (f"{label} gradient at batch 2 ({len(table)} tensors): {step_ms:.1f} ms forward and "
+            f"backward (the second of two calls on cuDNN's default algorithms; the first "
+            f"{timed[0]:.1f} ms), peak "
+            f"{peak:.2f} GiB, loss |d| {abs(loss_k - loss_p):.3e}, "
+            f"worst {share:.3f} of the bound ({name}: max|d| {err:.3e}, plain vs plain "
+            f"{noise:.3e}), worst ViL tensor {vil_share:.3f}; launches {launches}")
+    print(f"  {line}", flush=True)
+    lines.append(line)
+    del model, plain, x, got, want, want2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_xlstm(dev, gen):
+    """Phase 11, the xLSTM model families. Returns the launches of each
+    kernel and a summary."""
+    lines = []
+    fwd_launches = xlstm_forwards(dev, gen, lines)
+    xlstm_hemis(dev, gen, lines)
+    launches = xlstm_gradient(dev, gen, lines)
+    launches["mlstm_fwd"] += fwd_launches
+    return {"launches": launches,
+            "summary": f"{len(lines)} checks: " + " | ".join(l.split(":")[0] for l in lines)}
+
+
 def check_zoo(dev, gen, root, loader_wait):
     """Phase 10, the last two presets, their sweeps, training and CLIs, the
     native decoder and the patch probe. Returns a summary."""
@@ -1931,6 +2204,14 @@ def main():
         wait = {k: v["spans"]["train_wait"] / v["steps"] for k, v in cli["report"].items()}
         zoo = check_zoo(dev, torch.Generator(device=dev).manual_seed(10), root, wait)
         done("zoo", t0, zoo)
+
+    # ---- 11. xlstm: the xLSTM model families, on its own generator
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    xl = check_xlstm(dev, torch.Generator(device=dev).manual_seed(11))
+    for name in KERNELS:
+        rows[name]["launches_xlstm"] = xl["launches"][name]
+    done("xlstm", t0, xl["summary"])
 
     for name, row in rows.items():
         row["max_abs_err"] = worst[name]

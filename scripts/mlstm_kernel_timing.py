@@ -61,11 +61,11 @@ def main():
         prepared = mc.prepare(*cs.mlstm_inputs(gen, dev, 1, 4, S, 16, "realistic"), 128)
         g = torch.randn(prepared[0].shape, generator=gen, device=dev)
         with torch.inference_mode():
-            entry = mc.run_states_kernel(*prepared)[1:]
+            entry = mc.run_states_kernel(*prepared, dh=16)[1:]
             bwd_args = (*prepared[:3], g, *prepared[3:], *entry)
-            calls = {"mlstm_fwd": lambda: mc.run_kernel(*prepared),
-                     "mlstm_fwd_states": lambda: mc.run_states_kernel(*prepared),
-                     "mlstm_bwd": lambda: mc.run_bwd_kernel(*bwd_args)}
+            calls = {"mlstm_fwd": lambda: mc.run_kernel(*prepared, dh=16),
+                     "mlstm_fwd_states": lambda: mc.run_states_kernel(*prepared, dh=16),
+                     "mlstm_bwd": lambda: mc.run_bwd_kernel(*bwd_args, dh=16)}
             for name, fn in calls.items():
                 row = {"call_ms": cs.cuda_ms(fn), "device_ms": cs.device_ms(fn)}
                 result[f"{name}_S{S}"] = row

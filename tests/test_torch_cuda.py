@@ -1,7 +1,9 @@
 """PyTorch port on the card: the CUDA mLSTM kernels (forward, states-saving
 forward, backward) against their plain twins, at the ViL decoder's DH 8 and
-S 32768 too, the differentiable wrapper against autograd through the plain
-scan, the model's kernel path (the forward, the train step, the pretrain
+S 32768 too, and on the wide path at the xLSTM families' head widths (DH 15
+to 384, odd widths zero-padded), the differentiable wrapper against autograd
+through the plain scan, the xLSTM models' kernel path against their plain
+path, the model's kernel path (the forward, the train step, the pretrain
 step) against its plain path, the hoisted 15-subset sweep against the
 plain one (U_HVEDNet3D's too), the native NIfTI decoder built on that
 machine, and the patch-size probe. These need a CUDA
@@ -61,14 +63,14 @@ def _scaled_err(out, ref):
                                          (1, 4, 32768, 8, 128)])
 def test_kernel_matches_twin(dev, B, NH, S, DH, L):
     prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH), L)
-    out = mlstm_cuda.run_kernel(*prepared)
-    ref = mlstm_cuda.mlstm_forward_reference(*prepared)
+    out = mlstm_cuda.run_kernel(*prepared, dh=DH)
+    ref = mlstm_cuda.mlstm_forward_reference(*prepared, dh=DH)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     err = float((out - ref).abs().max())
     assert err <= 5e-4 and err / float(ref.abs().max()) <= 2e-5  # as chip_smoke.py
     # the states variant runs the same launches: the same h, bit for bit
-    assert torch.equal(out, mlstm_cuda.run_states_kernel(*prepared)[0])
+    assert torch.equal(out, mlstm_cuda.run_states_kernel(*prepared, dh=DH)[0])
 
 
 def test_mlstm_forward_matches_chunkwise_and_counts(dev):
@@ -92,21 +94,76 @@ def test_mlstm_forward_matches_chunkwise_and_counts(dev):
                                               (1, 4, 32768, 8, 128, "realistic")])
 def test_states_and_backward_kernels_match_twins(dev, B, NH, S, DH, L, case):
     prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH, case=case), L)
-    states = mlstm_cuda.run_states_kernel(*prepared)
-    states_ref = mlstm_cuda.mlstm_forward_states_reference(*prepared)
+    states = mlstm_cuda.run_states_kernel(*prepared, dh=DH)
+    states_ref = mlstm_cuda.mlstm_forward_states_reference(*prepared, dh=DH)
     for got, want in zip(states, states_ref):
         assert torch.isfinite(got).all()
         assert _scaled_err(got, want) <= 2e-5
     # the entry offsets m* are formed by the same fp32 operations
     assert torch.equal(states[3], states_ref[3])
     g = torch.randn_like(prepared[0])
-    grads = mlstm_cuda.run_bwd_kernel(*prepared[:3], g, *prepared[3:], *states_ref[1:])
-    grads_ref = mlstm_cuda.mlstm_backward_reference(*prepared[:3], g, *prepared[3:],
-                                                    *states_ref[1:])
+    args = (*prepared[:3], g, *prepared[3:], *states_ref[1:])
+    grads = mlstm_cuda.run_bwd_kernel(*args, dh=DH)
+    grads_ref = mlstm_cuda.mlstm_backward_reference(*args, dh=DH)
     torch.cuda.synchronize()
     for got, want in zip(grads, grads_ref):
         assert torch.isfinite(got).all()
         assert _scaled_err(got, want) <= 1e-4
+
+
+# the wide path at the xLSTM families' shapes (UXlstmEnc 3-D at batch 2,
+# stages 3 / 4 / 5; VisionLSTM3D; a ViT-B-wide VisionLSTM; the 2-D stage 6's
+# DH 15; the bottlenecks, one chunk with S < L), an odd width and the e^{-m}
+# branch
+@pytest.mark.parametrize("B,NH,S,DH,L,case", [(2, 4, 4096, 128, 128, "realistic"),
+                                              (2, 4, 512, 160, 128, "realistic"),
+                                              (2, 4, 320, 32, 128, "realistic"),
+                                              (1, 4, 4096, 96, 128, "realistic"),
+                                              (1, 4, 196, 384, 128, "realistic"),
+                                              (2, 2, 512, 15, 128, "realistic"),
+                                              (1, 4, 1000, 45, 128, "realistic"),
+                                              (2, 4, 64, 160, 128, "realistic"),
+                                              (2, 4, 15, 256, 128, "realistic"),
+                                              (1, 2, 300, 33, 64, "denominator"),
+                                              (1, 4, 200, 6, 32, "realistic")])
+def test_kernels_match_twins_at_every_head_width(dev, B, NH, S, DH, L, case):
+    prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH, case=case), L)
+    DP = prepared[0].shape[-1]
+    assert DP == mlstm_cuda.padded_width(DH)
+    out = mlstm_cuda.run_kernel(*prepared, dh=DH)
+    states = mlstm_cuda.run_states_kernel(*prepared, dh=DH)
+    states_ref = mlstm_cuda.mlstm_forward_states_reference(*prepared, dh=DH)
+    torch.cuda.synchronize()
+    assert torch.equal(out, states[0])
+    err = float((out - states_ref[0]).abs().max())
+    assert err <= 5e-4 and _scaled_err(out, states_ref[0]) <= 2e-5   # as chip_smoke.py
+    assert torch.count_nonzero(out[..., DH:]) == 0
+    for got, want in zip(states[1:3], states_ref[1:3]):
+        assert _scaled_err(got, want) <= 2e-5
+    assert torch.equal(states[3], states_ref[3])
+    g = torch.randn_like(prepared[0])
+    g[..., DH:] = 0.0
+    args = (*prepared[:3], g, *prepared[3:], *states_ref[1:])
+    grads = mlstm_cuda.run_bwd_kernel(*args, dh=DH)
+    grads_ref = mlstm_cuda.mlstm_backward_reference(*args, dh=DH)
+    torch.cuda.synchronize()
+    for got, want in zip(grads, grads_ref):
+        assert torch.isfinite(got).all()
+        assert _scaled_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("DH", [45, 128])
+def test_wide_gradients_match_autograd_through_scan(dev, DH):
+    inputs = _inputs(dev, 1, 4, 300, DH, seed=4)
+    w = torch.randn(1, 4, 300, DH, generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    (w * torch.tanh(mlstm_cuda.mlstm_forward(*leaves))).sum().backward()
+    ref_leaves = [t.clone().requires_grad_(True) for t in inputs]
+    (w * torch.tanh(mlstm_chunkwise(*ref_leaves))).sum().backward()
+    for got, want in zip(leaves, ref_leaves):
+        assert got.grad.shape == want.grad.shape
+        assert _scaled_err(got.grad, want.grad) <= 1e-3
 
 
 @pytest.mark.parametrize("S,bwd_mode", [(300, "fused"), (300, "scan"), (2000, "fused")])
@@ -125,6 +182,43 @@ def test_mlstm_forward_gradients_match_autograd_through_scan(dev, S, bwd_mode):
     for got, want in zip(leaves, ref_leaves):
         assert torch.isfinite(got.grad).all()
         assert _scaled_err(got.grad, want.grad) <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["uxlstm_enc_3d", "uxlstm_bot_2d", "vision_lstm3d",
+                                  "vil3d_patch_encoder"])
+def test_xlstm_models_kernel_path_matches_plain_path(dev, name):
+    from xlstm_hved_torch.models import UXlstmBot, UXlstmEnc
+    from xlstm_hved_torch.models.vision_lstm import ViL3DPatchEncoder, VisionLSTM3D
+
+    builds = {
+        "uxlstm_enc_3d": (lambda k: UXlstmEnc((32, 32, 32), 4, (8, 16, 32, 64, 64), 4,
+                                              strides=(1, 2, 2, 2, 2), deep_supervision=True,
+                                              mlstm_kernel=k), (2, 4, 32, 32, 32), 2),
+        "uxlstm_bot_2d": (lambda k: UXlstmBot((48, 40), 4, (8, 16, 32, 64), 4,
+                                              strides=(1, 2, 2, 2), deep_supervision=True,
+                                              mlstm_kernel=k), (2, 4, 48, 40), 1),
+        "vision_lstm3d": (lambda k: VisionLSTM3D(dim=64, depth=2, patch_size=8,
+                                                 img_size=(64, 64, 64), mlstm_kernel=k),
+                          (1, 4, 64, 64, 64), 2),
+        "vil3d_patch_encoder": (lambda k: ViL3DPatchEncoder(dims=(16, 32, 64),
+                                                            depths=(1, 1, 1), mlstm_kernel=k),
+                                (1, 4, 64, 64, 64), 3),
+    }
+    build, shape, vil_layers = builds[name]
+    torch.manual_seed(0)
+    model = build(None).to(dev).eval()
+    plain = build(False).to(dev).eval()
+    plain.load_state_dict(model.state_dict())
+    x = torch.rand(*shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    before = mlstm_cuda.run_kernel.launches
+    with torch.no_grad():
+        out, ref = model(x), plain(x)
+    assert mlstm_cuda.run_kernel.launches - before == vil_layers
+    out = out if isinstance(out, (list, tuple)) else [out]
+    ref = ref if isinstance(ref, (list, tuple)) else [ref]
+    for o, r in zip(out, ref):
+        assert torch.isfinite(o).all()
+        assert float((o - r).abs().max()) <= 1e-3   # phase 4's bound, as chip_smoke.py
 
 
 def test_model_kernel_path_matches_plain_path(dev):

@@ -1,7 +1,10 @@
 """PyTorch port: the plain mLSTMs, their gradients and the CUDA kernels'
 plain twins against the JAX package (chunkwise scan and the Pallas kernels
 in interpret mode). Tolerances are those of tests/test_mlstm.py for the
-Pallas kernels."""
+Pallas kernels. The wrapper's head-width padding (DH zero-padded to the
+kernels' width, the scale from the true DH) runs here through the twins:
+held to the unpadded plain scan and its autograd at 2e-5 (h) and 2e-5 of
+max|ref| (the gradients), fp32 sums in another order."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,10 +16,11 @@ from xlstm_hved_tpu.ops.mlstm import mlstm_chunkwise as j_chunkwise
 from xlstm_hved_tpu.ops.mlstm_pallas import _m_entry_chain, _pallas_forward, _prep, mlstm_pallas
 from xlstm_hved_torch.nn.vil import MatrixLSTMCell
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise, mlstm_quadratic
-from xlstm_hved_torch.ops.mlstm_cuda import (mlstm_backward, mlstm_forward,
+from xlstm_hved_torch.ops.mlstm_cuda import (MAX_DH, mlstm_backward, mlstm_forward,
                                              mlstm_forward_reference,
-                                             mlstm_forward_states_reference, prepare,
-                                             run_bwd_kernel, run_kernel, run_states_kernel)
+                                             mlstm_forward_states_reference, padded_width,
+                                             prepare, run_bwd_kernel, run_kernel,
+                                             run_states_kernel)
 
 ATOL, RTOL = 2e-4, 1e-3
 
@@ -47,7 +51,7 @@ def _inputs(seed, B=1, NH=2, S=80, DH=16, case="realistic"):
 
 def _twin(q, k, v, ig, fg, L):
     B, NH, S, DH = q.shape
-    out = mlstm_forward_reference(*prepare(*map(torch.from_numpy, (q, k, v, ig, fg)), L))
+    out = mlstm_forward_reference(*prepare(*map(torch.from_numpy, (q, k, v, ig, fg)), L), dh=DH)
     return out.reshape(B, NH, -1, DH)[:, :, :S].numpy()
 
 
@@ -115,9 +119,9 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
         mlstm_forward(q, k, v, ig, fg)                     # CPU tensors
     with pytest.raises(ValueError, match="bwd_mode"):
         mlstm_forward(q, k, v, ig, fg, bwd_mode="xla")     # only "fused" and "scan"
-    q8, k8, v8 = (t[..., :12] for t in (q, k, v))
-    with pytest.raises(ValueError, match="head width"):
-        mlstm_forward(q8, k8, v8, ig, fg)
+    wide = [torch.nn.functional.pad(t, (0, MAX_DH + 1 - t.shape[-1])) for t in (q, k, v)]
+    with pytest.raises(ValueError, match=f"head width {MAX_DH + 1}"):
+        mlstm_forward(*wide, ig, fg)                       # past the widest the kernels take
     with pytest.raises(ValueError, match="chunk_size"):
         mlstm_forward(q, k, v, ig, fg, chunk_size=256)
 
@@ -125,19 +129,79 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
 def test_kernel_launchers_refuse_what_they_cannot_run():
     prepared = prepare(*map(torch.from_numpy, _inputs(7, S=64)), 32)
     qf, kf, vf, a, s, cm = prepared
-    _, cent, nent, ment = mlstm_forward_states_reference(*prepared)
+    _, cent, nent, ment = mlstm_forward_states_reference(*prepared, dh=16)
     counters = (run_kernel, run_states_kernel, run_bwd_kernel)
     before = [fn.launches for fn in counters]
     for run in (run_kernel, run_states_kernel):
         with pytest.raises(ValueError, match="CUDA"):
-            run(*prepared)                                  # CPU tensors launch nothing
+            run(*prepared, dh=16)                           # CPU tensors launch nothing
     with pytest.raises(ValueError, match="CUDA"):
-        run_bwd_kernel(qf, kf, vf, qf, a, s, cm, cent, nent, ment)
+        run_bwd_kernel(qf, kf, vf, qf, a, s, cm, cent, nent, ment, dh=16)
     with pytest.raises(ValueError, match="unsupported prepared shapes"):
-        run_kernel(qf[:, :48].contiguous(), kf, vf, a, s, cm)   # Sp is not the chunks' span
+        run_kernel(qf[:, :48].contiguous(), kf, vf, a, s, cm, dh=16)   # Sp is not the chunks' span
     with pytest.raises(ValueError, match="3-D"):
-        run_bwd_kernel(qf[None], kf, vf, qf, a, s, cm, cent, nent, ment)
+        run_bwd_kernel(qf[None], kf, vf, qf, a, s, cm, cent, nent, ment, dh=16)
     assert [fn.launches for fn in counters] == before
+
+
+@pytest.mark.parametrize("dh,width", [(1, 8), (6, 8), (8, 8), (9, 16), (16, 16), (17, 32),
+                                      (45, 64), (96, 96), (130, 160), (384, 384),
+                                      (MAX_DH, MAX_DH)])
+def test_padded_width(dh, width):
+    assert padded_width(dh) == width
+
+
+@pytest.mark.parametrize("dh", [0, MAX_DH + 1])
+def test_padded_width_refuses_what_no_kernel_takes(dh):
+    with pytest.raises(ValueError, match=f"head width {dh}"):
+        padded_width(dh)
+
+
+@pytest.mark.parametrize("DH,S,L", [(6, 80, 32), (45, 97, 32), (3, 40, 16), (130, 70, 64)])
+def test_padded_twins_match_unpadded_chunkwise(DH, S, L):
+    """The wrapper's padding: q, k, v zero-padded to padded_width(DH) by
+    `prepare`, the twins scaled by the true 1/sqrt(DH), h's padded columns
+    exact zeros; `mlstm_backward` (which pads g the same way and runs the
+    twins on CPU tensors) against autograd through the unpadded scan."""
+    q, k, v, ig, fg = map(torch.from_numpy, _inputs(11, B=2, NH=2, S=S, DH=DH))
+    prepared = prepare(q, k, v, ig, fg, L)
+    DP = prepared[0].shape[-1]
+    assert DP == padded_width(DH) > DH
+    assert torch.count_nonzero(prepared[0][..., DH:]) == 0
+    h = mlstm_forward_reference(*prepared, dh=DH).reshape(2, 2, -1, DP)
+    assert torch.count_nonzero(h[..., DH:]) == 0
+    ref = mlstm_chunkwise(q, k, v, ig, fg, chunk_size=L)
+    torch.testing.assert_close(h[:, :, :S, :DH], ref, atol=2e-5, rtol=0)
+    # the true width's scale matters: the padded width's is another function
+    wrong = mlstm_forward_reference(*prepared, dh=DP).reshape(2, 2, -1, DP)[:, :, :S, :DH]
+    assert float((wrong - ref).abs().max()) > 1e-3
+
+    g = torch.from_numpy(np.random.RandomState(12).randn(2, 2, S, DH).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, ig, fg)]
+    want = torch.autograd.grad(mlstm_chunkwise(*leaves, chunk_size=L), leaves, g)
+    got = mlstm_backward(q, k, v, ig, fg, g, L)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 2e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("S,DH", [(320, 32), (196, 384), (4096, 16), (100, 16)])
+def test_kernel_bounds_count_true_rows(S, DH):
+    """chip_smoke.py's bounds cost the function at its true length: a padded
+    last chunk costs what a one-chunk sequence of its rows costs, and the
+    padding to whole chunks adds no work."""
+    import chip_smoke as cs
+
+    L = min(128, S)
+    full, rest = divmod(S, L)
+    for cost in (cs.mlstm_cost, lambda *a: cs.mlstm_cost(*a, states=True), cs.mlstm_bwd_cost):
+        nbytes, ops = cost(8, S, DH, L)
+        whole = cost(8, full * L, DH, L)
+        tail = cost(8, rest, DH, rest) if rest else (0, 0)
+        assert ops == whole[1] + tail[1]
+        assert nbytes == whole[0] + tail[0]
+        if rest:
+            assert ops < cost(8, (full + 1) * L, DH, L)[1]
 
 
 def test_matrix_lstm_cell_dispatch_on_cpu():
@@ -187,7 +251,7 @@ def _check_states_twin(B, NH, S, DH, L, case):
     out, cent, nent = _pallas_forward(*jin, L, 1e-6, True, save_states=True)
     m_ent = _m_entry_chain(*_prep(*jin, L)[4:6])
     prepared = prepare(*map(torch.from_numpy, (q, k, v, ig, fg)), L)
-    h, c, n, m = mlstm_forward_states_reference(*prepared)
+    h, c, n, m = mlstm_forward_states_reference(*prepared, dh=DH)
     np.testing.assert_allclose(h.reshape(B, NH, -1, DH)[:, :, :S].numpy(), np.asarray(out),
                                atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(c.numpy(), np.asarray(cent), atol=ATOL, rtol=RTOL)

@@ -3,7 +3,7 @@ blocks) and FusionUNet3D (the fusion arm), against the JAX package, and the
 rest of the zoo's surface.
 
 - Every MODEL_ZOO name and alias builds; U_HeMIS (another model family)
-  says it is not ported.
+  builds the port's UHeMIS, which matches JAX's.
 - Both presets' seg+recon forwards at 16^3 against the JAX model on the
   same numpy-drawn weights (tests/_torch_port.py), fp32, deterministic
   latents, for all modalities, one single-modality and one two-modality
@@ -83,8 +83,21 @@ def test_every_zoo_name_builds(name):
 
 
 def test_u_hemis_is_another_family_and_says_so():
-    with pytest.raises(NotImplementedError, match="U_HeMIS.*A9"):
-        find_model_using_name("U_HeMIS", device="cpu")
+    """U_HeMIS is another model family than the HVED presets: the registry
+    builds the port's UHeMIS for it, as JAX's builds its own, and on the same
+    weights the two agree (seg and recon at 16^3, tests/test_torch_hemis.py's
+    bound)."""
+    model = find_model_using_name("U_HeMIS", device="cpu")
+    jm = jax_model("U_HeMIS")
+    assert type(model).__name__ == type(jm).__name__ == "UHeMIS"
+    x = np.random.RandomState(8).rand(1, S, S, S, 4).astype(np.float32)
+    variables = tp.random_variables(jm, jnp.asarray(x), seed=8)
+    tp.load_port(model, variables)
+    want = jax.jit(jm.apply)(tp.to_jax(variables), jnp.asarray(x))
+    with torch.no_grad():
+        got = model(tp.ncdhw(x))
+    for g, w in zip(got, want):
+        assert tp.max_abs(tp.ndhwc(g), w) <= 1e-4 * max(1.0, float(np.abs(np.asarray(w)).max()))
 
 
 @pytest.fixture(scope="module", params=PRESETS)

@@ -47,8 +47,22 @@
 // of nchunks FMAs, its inputs loaded kScanAhead chunks ahead. Splitting the
 // row and column phases into separate kernels keeps each under the register
 // file's 255 a thread at DH 16.
+//
+// Head widths, as in mlstm_fwd.cu: these kernels for DH 8 and 16 (narrower
+// heads zero-padded to them), the wide path for DH zero-padded to a
+// multiple of 32. The wide path forms the attention and denominators with
+// the forward's wide kernel (so it takes the forward's branches), then per
+// (head, chunk) the numerator, the row adjoints (d rowsum, the direct dax),
+// the L x L dqk = (g/denom . v_j + d rowsum_t) e^{s_j - M_t} with ds's
+// attention part, the readout's adjoints of the entry state as 32 x 32
+// tiles, the reverse scan split across blocks, dq, dk, dv per 32-column tile
+// (dk with its tile's part of ds's state term), and last one block per
+// chunk for ds and the carried dm: ten launches, each sum in one block in a
+// fixed order, no atomics.
 
 #include <cuda_runtime.h>
+
+#include "mlstm_wide.cuh"
 
 namespace {
 
@@ -58,17 +72,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kScanAhead = 8;  // chunks whose inputs the scan loads at once
 constexpr int kMaxGridY = 65535;
 
-// Sum of one value per thread over the block; every thread gets the total,
-// added in the same order. Holds two barriers.
-__device__ float block_sum(float value, float* red) {
-  for (int o = 16; o > 0; o >>= 1) value += __shfl_xor_sync(0xffffffffu, value, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = value;
-  __syncthreads();
-  float total = 0.0f;
-  for (int w = 0; w < kWarps; ++w) total += red[w];
-  __syncthreads();  // red is free again
-  return total;
-}
+using mlstm_wide::block_sum;
 
 // Phase 1. Grid (bh, nchunks). Writes dq (bh, Sp, DH); dax, denom and drow
 // (bh, Sp); dcr (bh, nchunks, DH, DH), dnr (bh, nchunks, DH), dmr (bh, nchunks).
@@ -82,7 +86,7 @@ mlstm_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float* __restrict__ dq, float* __restrict__ dax,
                       float* __restrict__ denom_out, float* __restrict__ drow_out,
                       float* __restrict__ dcr, float* __restrict__ dnr,
-                      float* __restrict__ dmr, int chunk, float eps) {
+                      float* __restrict__ dmr, int chunk, float scale, float eps) {
   static_assert(DH * DH <= kThreads, "one thread per element of dC_read");
   __shared__ float q_s[kMaxChunk][DH + 1];  // q / sqrt(DH)
   __shared__ float k_s[kMaxChunk][DH + 1];
@@ -101,7 +105,6 @@ mlstm_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t cidx = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
   const size_t off = cidx * chunk * DH;
   const size_t goff = cidx * chunk;
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
 
   for (int e = tid; e < chunk * DH; e += kThreads) {
     const int r = e / DH, d = e % DH;
@@ -303,7 +306,8 @@ mlstm_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ ment, const float* __restrict__ denom_in,
                       const float* __restrict__ drow_in, const float* __restrict__ dcc,
                       const float* __restrict__ dnc, float* __restrict__ dk,
-                      float* __restrict__ dv, float* __restrict__ ds, int chunk) {
+                      float* __restrict__ dv, float* __restrict__ ds, int chunk,
+                      float scale) {
   __shared__ float q_s[kMaxChunk][DH + 1];  // q / sqrt(DH)
   __shared__ float k_s[kMaxChunk][DH + 1];
   __shared__ float v_s[kMaxChunk][DH + 1];
@@ -318,7 +322,6 @@ mlstm_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t cidx = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
   const size_t off = cidx * chunk * DH;
   const size_t goff = cidx * chunk;
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   const float m_in = ment[cidx];
 
   for (int e = tid; e < chunk * DH; e += kThreads) {
@@ -407,10 +410,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
                    const float* nent, const float* ment, float* dq, float* dk, float* dv,
                    float* ds, float* dax, float* denom, float* drow, float* dcr, float* dnr,
                    float* dmr, float* dcc, float* dnc, int bh, int nchunks, int chunk,
-                   float eps, cudaStream_t st) {
+                   float scale, float eps, cudaStream_t st) {
   const dim3 grid(bh, nchunks);
   mlstm_bwd_rows_kernel<DH><<<grid, kThreads, 0, st>>>(
-      q, k, v, g, a, s, cm, cent, nent, ment, dq, dax, denom, drow, dcr, dnr, dmr, chunk, eps);
+      q, k, v, g, a, s, cm, cent, nent, ment, dq, dax, denom, drow, dcr, dnr, dmr, chunk, scale,
+      eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mlstm_bwd_scan_kernel<DH><<<bh, DH * DH, 0, st>>>(cm, cent, nent, ment, dcr, dnr, dmr, dcc,
@@ -418,47 +422,291 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mlstm_bwd_cols_kernel<DH><<<grid, kThreads, 0, st>>>(q, k, v, g, s, cm, ment, denom, drow,
-                                                       dcc, dnc, dk, dv, ds, chunk);
+                                                       dcc, dnc, dk, dv, ds, chunk, scale);
+  return cudaGetLastError();
+}
+
+// ---- the wide path (dp a multiple of 32)
+
+// The row adjoints. Grid (bh * nchunks), a warp per row: g_t . num_t (num
+// the readout's numerator, before the division), then as the narrow rows
+// kernel d denom, d rowsum (on the live branch of the forward's
+// denominator), the direct dax_t, and e^{m* - M_t} d rowsum_t q_t.n*, the
+// row's part of the readout's dm of the entry state.
+__global__ void __launch_bounds__(kThreads)
+wide_bwd_rows_kernel(const float* __restrict__ g, const float* __restrict__ num,
+                     const float* __restrict__ a, const float* __restrict__ cm,
+                     const float* __restrict__ ment, const float* __restrict__ rowsum_in,
+                     const float* __restrict__ denom_in, const float* __restrict__ qn_in,
+                     float* __restrict__ drow_out, float* __restrict__ dax,
+                     float* __restrict__ rowterm, int chunk, int dp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t cidx = blockIdx.x;
+  const size_t goff = cidx * chunk;
+  const float m_in = ment[cidx];
+  for (int t = warp; t < chunk; t += kWarps) {
+    const size_t row = (goff + t) * dp;
+    float gnum = 0.0f;
+    for (int d = lane; d < dp; d += 32) gnum = fmaf(g[row + d], num[row + d], gnum);
+    for (int o = 16; o > 0; o >>= 1) gnum += __shfl_xor_sync(0xffffffffu, gnum, o);
+    if (lane == 0) {
+      const float denom = denom_in[goff + t], rowsum = rowsum_in[goff + t];
+      const float m_row = fmaxf(cm[goff + t], m_in);
+      const float e_neg = expf(-fmaxf(a[goff + t] + m_row, -60.0f));
+      const bool act = fabsf(rowsum) >= e_neg;
+      const float ddenom = -gnum / (denom * denom);
+      const float drow = !act ? 0.0f : rowsum > 0.0f ? ddenom : rowsum < 0.0f ? -ddenom : 0.0f;
+      drow_out[goff + t] = drow;
+      dax[goff + t] = act ? 0.0f : -e_neg * ddenom;
+      rowterm[goff + t] = expf(m_in - m_row) * (drow * qn_in[goff + t]);
+    }
+  }
+}
+
+// The L x L adjoint of the attention. Grid (bh * nchunks),
+// scores_smem_bytes(0) of dynamic shared memory. dattn[t][j] = g_t/denom_t
+// . v_j + d rowsum_t; writes dqk = dattn e^{s_j - M_t} (0 above the
+// diagonal) and ds's attention part sum_{t >= j} dattn[t][j] attn[t][j].
+__global__ void __launch_bounds__(kThreads)
+wide_dscores_kernel(const float* __restrict__ g, const float* __restrict__ v,
+                    const float* __restrict__ s, const float* __restrict__ cm,
+                    const float* __restrict__ ment, const float* __restrict__ denom,
+                    const float* __restrict__ drow, const float* __restrict__ attn,
+                    float* __restrict__ dqk, float* __restrict__ ds_attn, int chunk, int dp) {
+  using mlstm_wide::kStage;
+  extern __shared__ float smem[];
+  float* stage = smem;                // [kMaxChunk][kMaxChunk + 1], aliases the tiles
+  float* s_s = smem + kStage;
+  float* mrow_s = s_s + kMaxChunk;
+  float* drow_s = mrow_s + kMaxChunk;
+
+  const int tid = threadIdx.x;
+  const size_t cidx = blockIdx.x;
+  const size_t off = cidx * chunk * dp;
+  const size_t goff = cidx * chunk;
+  const float m_in = ment[cidx];
+  for (int e = tid; e < chunk; e += kThreads) {
+    s_s[e] = s[goff + e];
+    mrow_s[e] = fmaxf(cm[goff + e], m_in);
+    drow_s[e] = drow[goff + e];
+  }
+  __syncthreads();
+
+  mlstm_wide::Scores sc;
+  mlstm_wide::chunk_scores(sc, g, v, denom + goff, 1.0f, nullptr, smem, off, chunk, dp);
+
+  const int tx = tid % 16, ty = tid / 16;
+  const float* at = attn + cidx * chunk * chunk;
+  float* dq = dqk + cidx * chunk * chunk;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int t = ty + 16 * r;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int j = tx + 16 * c;
+      if (t < chunk && j < chunk) {
+        float d = 0.0f, prod = 0.0f;
+        if (j <= t) {
+          const float dattn = sc.acc[r][c] + drow_s[t];
+          d = dattn * expf(s_s[j] - mrow_s[t]);
+          prod = dattn * at[static_cast<size_t>(t) * chunk + j];
+        }
+        stage[t * (kMaxChunk + 1) + j] = prod;
+        dq[static_cast<size_t>(t) * chunk + j] = d;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < chunk) {
+    float sum = 0.0f;
+    for (int t = tid; t < chunk; ++t) sum += stage[t * (kMaxChunk + 1) + tid];
+    ds_attn[goff + tid] = sum;
+  }
+}
+
+// The wide path's reverse scan. Grid (bh, ceil((dp * dp + dp) / 256)), one
+// thread per element of dC and of dn, spread over blocks as the forward's.
+__global__ void __launch_bounds__(kThreads)
+wide_bwd_scan_kernel(const float* __restrict__ cm, const float* __restrict__ ment,
+                     const float* __restrict__ dcr, const float* __restrict__ dnr,
+                     float* __restrict__ dcc, float* __restrict__ dnc, int nchunks, int chunk,
+                     int dp) {
+  const size_t n_c = static_cast<size_t>(dp) * dp;
+  const size_t e = static_cast<size_t>(blockIdx.y) * kThreads + threadIdx.x;
+  const bool is_c = e < n_c;
+  if (!is_c && e >= n_c + dp) return;
+  const size_t base = static_cast<size_t>(blockIdx.x) * nchunks;
+  float carry = 0.0f;
+  for (int c0 = nchunks - 1; c0 >= 0; c0 -= kScanAhead) {
+    float r[kScanAhead], e_dec[kScanAhead];
+#pragma unroll
+    for (int u = 0; u < kScanAhead; ++u) {  // loads that do not wait on the carry
+      const size_t cidx = base + max(c0 - u, 0);
+      r[u] = is_c ? dcr[cidx * n_c + e] : dnr[cidx * dp + e - n_c];
+      e_dec[u] = entry_decay(cm, ment, cidx, chunk);
+    }
+#pragma unroll
+    for (int u = 0; u < kScanAhead; ++u) {  // no early exit, as in the narrow scan
+      if (c0 - u >= 0) {
+        const size_t cidx = base + c0 - u;
+        if (is_c) {
+          dcc[cidx * n_c + e] = carry;
+        } else {
+          dnc[cidx * dp + e - n_c] = carry;
+        }
+      }
+      carry = fmaf(e_dec[u], carry, r[u]);
+    }
+  }
+}
+
+// The last step, one block per (head, chunk): ds = the attention part + e^{s_p
+// - M'} (the state part, summed over the column tiles in order); and for
+// every chunk but a head's first, the carried dm = e_dec (sum dC * C* + sum
+// dn * n*) + the readout's dm (sum dC_read * C* + the rows' parts), added to
+// dax at the previous chunk's last row (m*' = a_{L-1} + M').
+__global__ void __launch_bounds__(kThreads)
+wide_bwd_final_kernel(const float* __restrict__ s, const float* __restrict__ cm,
+                      const float* __restrict__ cent, const float* __restrict__ nent,
+                      const float* __restrict__ ment, const float* __restrict__ dcr,
+                      const float* __restrict__ dcc, const float* __restrict__ dnc,
+                      const float* __restrict__ rowterm, const float* __restrict__ ds_attn,
+                      const float* __restrict__ dsp, float* __restrict__ dax,
+                      float* __restrict__ ds, int nchunks, int chunk, int dp) {
+  __shared__ float red_s[kWarps];
+  const int tid = threadIdx.x;
+  const size_t cidx = blockIdx.x;
+  const size_t goff = cidx * chunk;
+  const int tiles = dp / mlstm_wide::kTile;
+  const float m_in = ment[cidx];
+  const float m_new = fmaxf(m_in, cm[goff + chunk - 1]);  // M'
+  for (int p = tid; p < chunk; p += kThreads) {
+    float state = 0.0f;
+    for (int i = 0; i < tiles; ++i) state += dsp[(goff + p) * tiles + i];
+    ds[goff + p] = fmaf(expf(s[goff + p] - m_new), state, ds_attn[goff + p]);
+  }
+  if (cidx % nchunks == 0) return;  // a head's first chunk: m* = -1e30 is a constant
+  const size_t n_c = static_cast<size_t>(dp) * dp;
+  const float* c_in = cent + cidx * n_c;
+  float carried = 0.0f, read = 0.0f;
+  for (size_t e = tid; e < n_c; e += kThreads) {
+    carried = fmaf(dcc[cidx * n_c + e], c_in[e], carried);
+    read = fmaf(dcr[cidx * n_c + e], c_in[e], read);
+  }
+  for (int e = tid; e < dp; e += kThreads) {
+    carried = fmaf(dnc[cidx * dp + e], nent[cidx * dp + e], carried);
+  }
+  for (int e = tid; e < chunk; e += kThreads) read += rowterm[goff + e];
+  carried = block_sum(carried, red_s);
+  read = block_sum(read, red_s);
+  if (tid == 0) dax[goff - 1] += fmaf(entry_decay(cm, ment, cidx, chunk), carried, read);
+}
+
+cudaError_t launch_wide(const float* q, const float* k, const float* v, const float* g,
+                        const float* a, const float* s, const float* cm, const float* cent,
+                        const float* nent, const float* ment, float* dq, float* dk, float* dv,
+                        float* ds, float* dax, float* denom, float* drow, float* dcr,
+                        float* dnr, float* dcc, float* dnc, float* attn, float* dqk,
+                        float* num, float* rowsum, float* qn, float* rowterm, float* ds_attn,
+                        float* dsp, int bh, int nchunks, int chunk, int dp, float scale,
+                        float eps, cudaStream_t st) {
+  using namespace mlstm_wide;
+  const unsigned blocks = static_cast<unsigned>(bh) * nchunks;
+  const unsigned tiles = dp / kTile;
+  const unsigned state_blocks = (dp * dp + dp + kThreads - 1) / kThreads;
+  const dim3 col_grid(blocks, tiles);
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(scores_smem_bytes(dp)));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(wide_dscores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(scores_smem_bytes(0)));
+  if (err != cudaSuccess) return err;
+  // the forward's attention and denominators, then its numerator
+  wide_scores_kernel<<<blocks, kThreads, scores_smem_bytes(dp), st>>>(
+      q, k, a, s, cm, nent, ment, attn, rowsum, denom, qn, chunk, dp, scale, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wide_apply_kernel<Apply::kNumerator><<<col_grid, kThreads, 0, st>>>(
+      attn, v, q, cent, nullptr, nullptr, s, cm, ment, denom, nullptr, num, nullptr, chunk, dp,
+      scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wide_bwd_rows_kernel<<<blocks, kThreads, 0, st>>>(g, num, a, cm, ment, rowsum, denom, qn,
+                                                    drow, dax, rowterm, chunk, dp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wide_dscores_kernel<<<blocks, kThreads, scores_smem_bytes(0), st>>>(
+      g, v, s, cm, ment, denom, drow, attn, dqk, ds_attn, chunk, dp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wide_outer_kernel<Outer::kReadAdjoint><<<dim3(blocks, tiles, tiles), kThreads, 0, st>>>(
+      q, g, s, cm, ment, denom, drow, dcr, dnr, chunk, dp, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wide_bwd_scan_kernel<<<dim3(bh, state_blocks), kThreads, 0, st>>>(cm, ment, dcr, dnr, dcc,
+                                                                    dnc, nchunks, chunk, dp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wide_apply_kernel<Apply::kDq><<<col_grid, kThreads, 0, st>>>(
+      dqk, k, g, cent, nent, nullptr, s, cm, ment, denom, drow, dq, nullptr, chunk, dp, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wide_apply_kernel<Apply::kDk><<<col_grid, kThreads, 0, st>>>(
+      dqk, q, v, dcc, dnc, k, s, cm, ment, denom, drow, dk, dsp, chunk, dp, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wide_apply_kernel<Apply::kDv><<<col_grid, kThreads, 0, st>>>(
+      attn, g, k, dcc, nullptr, nullptr, s, cm, ment, denom, drow, dv, nullptr, chunk, dp,
+      scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wide_bwd_final_kernel<<<blocks, kThreads, 0, st>>>(s, cm, cent, nent, ment, dcr, dcc, dnc,
+                                                     rowterm, ds_attn, dsp, dax, ds, nchunks,
+                                                     chunk, dp);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, g, dq, dk, dv: (bh, seq_len, dh); a, s, cm, ds, dax: (bh, seq_len);
-// cent (bh, seq_len / chunk, dh, dh), nent (bh, seq_len / chunk, dh) and
-// ment (bh, seq_len / chunk) from mlstm_fwd_launch; the workspace: denom and
-// drow (bh, seq_len), dcr and dcc (bh, seq_len / chunk, dh, dh), dnr and dnc
-// (bh, seq_len / chunk, dh), dmr (bh, seq_len / chunk). All fp32, contiguous,
-// on `device`, seq_len a multiple of chunk. Enqueues the three launches on
-// `stream` and returns the first cudaError_t of a launch (0 on success).
+// q, k, v, g, dq, dk, dv: (bh, seq_len, dp), dh <= dp the true head width
+// (the columns past it zero); a, s, cm, ds, dax: (bh, seq_len); cent
+// (bh, seq_len / chunk, dp, dp), nent (bh, seq_len / chunk, dp) and ment
+// (bh, seq_len / chunk) from mlstm_fwd_launch; the workspace: denom and drow
+// (bh, seq_len), dcr and dcc (bh, seq_len / chunk, dp, dp), dnr and dnc
+// (bh, seq_len / chunk, dp), dmr (bh, seq_len / chunk, the narrow path's),
+// and for the wide path (dp a multiple of 32, up to 512) attn and dqk
+// (bh * seq_len / chunk, chunk, chunk), num (bh, seq_len, dp), rowsum, qn,
+// rowterm and ds_attn (bh, seq_len) and dsp (bh, seq_len, dp / 32). All
+// fp32, contiguous, on `device`, seq_len a multiple of chunk. Enqueues the
+// launches on `stream` and returns the first cudaError_t of a launch (0 on
+// success).
 extern "C" int mlstm_bwd_launch(const float* q, const float* k, const float* v,
                                 const float* g, const float* a, const float* s,
                                 const float* cm, const float* cent, const float* nent,
                                 const float* ment, float* dq, float* dk, float* dv,
                                 float* ds, float* dax, float* denom, float* drow, float* dcr,
-                                float* dnr, float* dmr, float* dcc, float* dnc, int bh,
-                                int seq_len, int chunk, int dh, float eps, int device,
+                                float* dnr, float* dmr, float* dcc, float* dnc, float* attn,
+                                float* dqk, float* num, float* rowsum, float* qn,
+                                float* rowterm, float* ds_attn, float* dsp, int bh,
+                                int seq_len, int chunk, int dp, int dh, float eps, int device,
                                 void* stream) {
+  const bool wide = dp % mlstm_wide::kTile == 0 && dp <= mlstm_wide::kWideMaxDh;
   if (bh <= 0 || chunk <= 0 || chunk > kMaxChunk || seq_len % chunk != 0 ||
-      seq_len / chunk > kMaxGridY) {
+      seq_len / chunk > kMaxGridY || dh <= 0 || dh > dp ||
+      !(dp == 8 || dp == 16 || wide)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nchunks = seq_len / chunk;
+  const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 8:
-      return static_cast<int>(launch<8>(q, k, v, g, a, s, cm, cent, nent, ment, dq, dk, dv, ds,
-                                        dax, denom, drow, dcr, dnr, dmr, dcc, dnc, bh, nchunks,
-                                        chunk, eps, st));
-    case 16:
-      return static_cast<int>(launch<16>(q, k, v, g, a, s, cm, cent, nent, ment, dq, dk, dv,
-                                         ds, dax, denom, drow, dcr, dnr, dmr, dcc, dnc, bh,
-                                         nchunks, chunk, eps, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dp == 8) {
+    return static_cast<int>(launch<8>(q, k, v, g, a, s, cm, cent, nent, ment, dq, dk, dv, ds,
+                                      dax, denom, drow, dcr, dnr, dmr, dcc, dnc, bh, nchunks,
+                                      chunk, scale, eps, st));
   }
+  if (dp == 16) {
+    return static_cast<int>(launch<16>(q, k, v, g, a, s, cm, cent, nent, ment, dq, dk, dv, ds,
+                                       dax, denom, drow, dcr, dnr, dmr, dcc, dnc, bh, nchunks,
+                                       chunk, scale, eps, st));
+  }
+  return static_cast<int>(launch_wide(q, k, v, g, a, s, cm, cent, nent, ment, dq, dk, dv, ds,
+                                      dax, denom, drow, dcr, dnr, dcc, dnc, attn, dqk, num,
+                                      rowsum, qn, rowterm, ds_attn, dsp, bh, nchunks, chunk, dp,
+                                      scale, eps, st));
 }
 
 extern "C" const char* mlstm_bwd_error_string(int code) {

@@ -45,8 +45,20 @@
 // inputs kScanAhead chunks ahead so that the chain does not wait on memory.
 // Tiles are read with coalesced 4-byte loads (a 128 x 16 tile is 8 loads a
 // thread); static shared memory stays under 48 KB.
+//
+// Head widths. The kernels above are built for DH 8 and 16 (the flagship's
+// and the ViL decoder's widths): narrower heads are zero-padded to one of
+// them by the wrapper. Wider heads (the UxLSTM and Vision-LSTM ViLs, DH 32
+// to 384) take the wide path of mlstm_wide.cuh: DH zero-padded to a
+// multiple of 32, the chunk states as 32 x 32 tiles, the carry scan split
+// across blocks (each block recomputes the same m* chain, so m* stays
+// bitwise), the attention and denominators once per (head, chunk), then the
+// readout per 32-column tile of h: four launches. In both paths the scale
+// 1/sqrt(DH) is taken from the true DH.
 
 #include <cuda_runtime.h>
+
+#include "mlstm_wide.cuh"
 
 namespace {
 
@@ -142,7 +154,7 @@ mlstm_readout_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ s, const float* __restrict__ cm,
                      const float* __restrict__ cent, const float* __restrict__ nent,
                      const float* __restrict__ ment, float* __restrict__ out, int chunk,
-                     float eps) {
+                     float scale, float eps) {
   __shared__ float q_s[kMaxChunk][DH + 1];  // +1: rows are read per thread
   __shared__ float k_s[kMaxChunk][DH];
   __shared__ float v_s[kMaxChunk][DH];
@@ -156,7 +168,6 @@ mlstm_readout_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t cidx = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
   const size_t off = cidx * chunk * DH;
   const size_t goff = cidx * chunk;
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
 
   for (int e = tid; e < chunk * DH; e += kThreads) {
     const int r = e / DH, d = e % DH;
@@ -220,11 +231,55 @@ mlstm_readout_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The wide path's carry scan. Grid (bh, ceil((dp * dp + dp) / 256)): one
+// thread per element of C* and of n*, the elements of a head spread over
+// blocks; each element's recurrence is independent given the m* chain, which
+// every thread forms with the same fp32 operations as the narrow scan (block
+// 0's thread 0 stores it).
+__global__ void __launch_bounds__(kThreads)
+wide_fwd_scan_kernel(const float* __restrict__ a, const float* __restrict__ cm,
+                     const float* __restrict__ kc, const float* __restrict__ nc,
+                     float* __restrict__ cent, float* __restrict__ nent,
+                     float* __restrict__ ment, int nchunks, int chunk, int dp) {
+  const size_t n_c = static_cast<size_t>(dp) * dp;
+  const size_t e = static_cast<size_t>(blockIdx.y) * kThreads + threadIdx.x;
+  const bool is_c = e < n_c, is_n = !is_c && e < n_c + dp;
+  const bool stores_m = blockIdx.y == 0 && threadIdx.x == 0;
+  if (!(is_c || is_n || stores_m)) return;
+  const size_t base = static_cast<size_t>(blockIdx.x) * nchunks;
+  float state = 0.0f;
+  float m_state = -1e30f;
+  for (int c0 = 0; c0 < nchunks; c0 += kScanAhead) {
+    float in[kScanAhead], top[kScanAhead], a_last[kScanAhead];
+#pragma unroll
+    for (int u = 0; u < kScanAhead; ++u) {  // loads that do not wait on the carry
+      const size_t cidx = base + min(c0 + u, nchunks - 1);
+      in[u] = is_c ? kc[cidx * n_c + e] : is_n ? nc[cidx * dp + e - n_c] : 0.0f;
+      top[u] = cm[(cidx + 1) * chunk - 1];
+      a_last[u] = a[(cidx + 1) * chunk - 1];
+    }
+#pragma unroll
+    for (int u = 0; u < kScanAhead; ++u) {  // no early exit, as in the narrow scan
+      if (c0 + u < nchunks) {
+        const size_t cidx = base + c0 + u;
+        if (is_c) cent[cidx * n_c + e] = state;
+        if (is_n) nent[cidx * dp + e - n_c] = state;
+        if (stores_m) ment[cidx] = m_state;
+      }
+      const float m_new = fmaxf(m_state, top[u]);
+      const float decay_old = expf(m_state - m_new);
+      const float decay_new = expf(top[u] - m_new);
+      state = fmaf(decay_old, state, decay_new * in[u]);
+      m_state = a_last[u] + m_new;
+    }
+  }
+}
+
 template <int DH>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* a,
                    const float* s, const float* cm, float* out, float* kc, float* nc,
                    float* cent, float* nent, float* ment, int bh, int nchunks, int chunk,
-                   float eps, cudaStream_t st) {
+                   float scale, float eps, cudaStream_t st) {
   const dim3 grid(bh, nchunks);
   mlstm_chunk_state_kernel<DH><<<grid, kThreads, 0, st>>>(k, v, s, cm, kc, nc, chunk);
   cudaError_t err = cudaGetLastError();
@@ -234,42 +289,84 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mlstm_readout_kernel<DH><<<grid, kThreads, 0, st>>>(q, k, v, a, s, cm, cent, nent, ment,
-                                                      out, chunk, eps);
+                                                      out, chunk, scale, eps);
+  return cudaGetLastError();
+}
+
+// The wide path (dp a multiple of 32): chunk states, carry scan, attention
+// and denominators, readout per column tile. attn (bh * nchunks, chunk,
+// chunk), rowsum, denom and qn (bh * seq_len) are workspace.
+cudaError_t launch_wide(const float* q, const float* k, const float* v, const float* a,
+                        const float* s, const float* cm, float* out, float* kc, float* nc,
+                        float* cent, float* nent, float* ment, float* attn, float* rowsum,
+                        float* denom, float* qn, int bh, int nchunks, int chunk, int dp,
+                        float scale, float eps, cudaStream_t st) {
+  using namespace mlstm_wide;
+  const unsigned blocks = static_cast<unsigned>(bh) * nchunks;
+  const unsigned tiles = dp / kTile;
+  const unsigned state_blocks = (dp * dp + dp + kThreads - 1) / kThreads;
+  wide_outer_kernel<Outer::kChunkState><<<dim3(blocks, tiles, tiles), kThreads, 0, st>>>(
+      k, v, s, cm, nullptr, nullptr, nullptr, kc, nc, chunk, dp, 1.0f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wide_fwd_scan_kernel<<<dim3(bh, state_blocks), kThreads, 0, st>>>(a, cm, kc, nc, cent, nent,
+                                                                    ment, nchunks, chunk, dp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = scores_smem_bytes(dp);
+  err = cudaFuncSetAttribute(wide_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  wide_scores_kernel<<<blocks, kThreads, smem, st>>>(q, k, a, s, cm, nent, ment, attn, rowsum,
+                                                     denom, qn, chunk, dp, scale, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wide_apply_kernel<Apply::kReadout><<<dim3(blocks, tiles), kThreads, 0, st>>>(
+      attn, v, q, cent, nullptr, nullptr, s, cm, ment, denom, nullptr, out, nullptr, chunk, dp,
+      scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out: (bh, seq_len, dh) fp32; a, s, cm: (bh, seq_len) fp32,
-// seq_len a multiple of chunk; the workspace kc (bh, seq_len / chunk, dh,
-// dh) and nc (bh, seq_len / chunk, dh); the entry states cent
-// (bh, seq_len / chunk, dh, dh), nent (bh, seq_len / chunk, dh) and ment
-// (bh, seq_len / chunk), written here. All fp32, contiguous, on `device`.
-// Enqueues the three launches on `stream` and returns the first
-// cudaError_t of a launch (0 on success).
+// q, k, v, out: (bh, seq_len, dp) fp32, dh <= dp the true head width (the
+// columns past it zero); a, s, cm: (bh, seq_len) fp32, seq_len a multiple of
+// chunk; the workspace kc (bh, seq_len / chunk, dp, dp) and nc (bh,
+// seq_len / chunk, dp); the entry states cent (bh, seq_len / chunk, dp, dp),
+// nent (bh, seq_len / chunk, dp) and ment (bh, seq_len / chunk), written
+// here; for the wide path (dp a multiple of 32, up to 512) also attn
+// (bh * seq_len / chunk, chunk, chunk), rowsum, denom and qn (bh, seq_len),
+// unused by the narrow one (dp 8 or 16). All fp32, contiguous, on `device`.
+// Enqueues the launches on `stream` and returns the first cudaError_t of a
+// launch (0 on success).
 extern "C" int mlstm_fwd_launch(const float* q, const float* k, const float* v,
                                 const float* a, const float* s, const float* cm,
                                 float* out, float* kc, float* nc, float* cent,
-                                float* nent, float* ment, int bh, int seq_len, int chunk,
-                                int dh, float eps, int device, void* stream) {
+                                float* nent, float* ment, float* attn, float* rowsum,
+                                float* denom, float* qn, int bh, int seq_len, int chunk,
+                                int dp, int dh, float eps, int device, void* stream) {
+  const bool wide = dp % mlstm_wide::kTile == 0 && dp <= mlstm_wide::kWideMaxDh;
   if (bh <= 0 || chunk <= 0 || chunk > kMaxChunk || seq_len % chunk != 0 ||
-      seq_len / chunk > kMaxGridY) {
+      seq_len / chunk > kMaxGridY || dh <= 0 || dh > dp ||
+      !(dp == 8 || dp == 16 || wide)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nchunks = seq_len / chunk;
+  const float scale = 1.0f / sqrtf(static_cast<float>(dh));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 8:
-      return static_cast<int>(launch<8>(q, k, v, a, s, cm, out, kc, nc, cent, nent, ment,
-                                        bh, nchunks, chunk, eps, st));
-    case 16:
-      return static_cast<int>(launch<16>(q, k, v, a, s, cm, out, kc, nc, cent, nent, ment,
-                                         bh, nchunks, chunk, eps, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dp == 8) {
+    return static_cast<int>(launch<8>(q, k, v, a, s, cm, out, kc, nc, cent, nent, ment, bh,
+                                      nchunks, chunk, scale, eps, st));
   }
+  if (dp == 16) {
+    return static_cast<int>(launch<16>(q, k, v, a, s, cm, out, kc, nc, cent, nent, ment, bh,
+                                       nchunks, chunk, scale, eps, st));
+  }
+  return static_cast<int>(launch_wide(q, k, v, a, s, cm, out, kc, nc, cent, nent, ment, attn,
+                                      rowsum, denom, qn, bh, nchunks, chunk, dp, scale, eps,
+                                      st));
 }
 
 extern "C" const char* mlstm_fwd_error_string(int code) {

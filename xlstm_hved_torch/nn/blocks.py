@@ -70,6 +70,17 @@ class Conv3d(nn.Conv3d):
         return self._conv_forward(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d run in `compute_dtype` when it is set (the 2-D UxLSTM nets
+    and VisionLSTM's patch embedding)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(_cast(x, dt), _cast(self.weight, dt), _cast(self.bias, dt))
+
+
 class Linear(nn.Linear):
     """nn.Linear run in `compute_dtype` when it is set (flax Dense's
     `dtype`)."""
@@ -82,11 +93,12 @@ class Linear(nn.Linear):
 
 
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
-    """Every Conv3d and Linear in `module` computes in `dtype`, as the JAX
-    model hands its `dtype` to every block. The ViL's layers (torch's own
-    nn.Linear) are not among them: the fp32 island. Returns `module`."""
+    """Every Conv3d, Conv2d and Linear in `module` computes in `dtype`, as
+    the JAX model hands its `dtype` to every block. The ViL's layers (torch's
+    own nn.Linear, with their own `dtype`) are not among them: the fp32
+    island. Returns `module`."""
     for m in module.modules():
-        if isinstance(m, (Conv3d, Linear)):
+        if isinstance(m, (Conv3d, Conv2d, Linear)):
             m.compute_dtype = dtype
     return module
 
@@ -249,14 +261,18 @@ class SingleConv(nn.Module):
     """One 3^3 conv (stride `stride`) with norm/nonlinearity placement from
     the order string; no conv bias when the order normalises by group or
     batch. GroupNorm takes `num_groups` groups (1 below that many
-    channels); BatchNorm follows the module's train/eval mode."""
+    channels); BatchNorm follows the module's train/eval mode. With
+    `streams` > 1 the conv is grouped, one group per stream of the folded
+    layout (cin and features count all streams' channels), and the order
+    may only normalise per channel."""
 
     def __init__(self, cin: int, features: int, order: str = "ilc", stride: int = 1,
-                 num_groups: int = 8):
+                 num_groups: int = 8, streams: int = 1):
         super().__init__()
         bias = not set("gb") & set(order)
-        self.steps = _order_layers(self, order, _ORDER_CHARS, "Conv3DFast_0",
-                                   conv3d(cin, features, 3, stride, bias=bias),
+        allowed = _ORDER_CHARS if streams == 1 else _BLOCK_DIAG_ORDER_CHARS
+        self.steps = _order_layers(self, order, allowed, "Conv3DFast_0",
+                                   conv3d(cin, features, 3, stride, streams, bias),
                                    cin, features, num_groups)
 
     def forward(self, x):
@@ -314,17 +330,19 @@ def make_basic_module(name: str, cin: int, features: int, encoder: bool, order: 
 
 
 class BasicConv(nn.Module):
-    """Bias-free conv (grouped when groups > 1) + InstanceNorm, then
-    LeakyReLU when `relu`."""
+    """Bias-free conv (grouped when groups > 1), then InstanceNorm when
+    `norm` and LeakyReLU when `relu`."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1, groups: int = 1,
-                 relu: bool = True):
+                 relu: bool = True, norm: bool = True):
         super().__init__()
-        self.relu = relu
+        self.relu, self.norm = relu, norm
         self.conv = conv3d(cin, features, kernel_size, groups=groups, bias=False)
 
     def forward(self, x):
-        x = instance_norm(self.conv(x))
+        x = self.conv(x)
+        if self.norm:
+            x = instance_norm(x)
         return leaky_relu(x) if self.relu else x
 
 

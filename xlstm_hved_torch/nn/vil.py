@@ -9,9 +9,17 @@ fgate bias linspace 3..6, zero gate kernels, zero norm offsets).
 - CausalConv1d: depthwise causal conv over tokens, left pad k-1
 - ResidualLayerNorm / MultiHeadLayerNorm: scale (1 + w), no bias
 - MatrixLSTMCell: i/f gates (fp32) from concat(q, k, v), mLSTM, out-norm
-- ViLLayer: up-proj -> (causal conv, headwise q/k/v, mLSTM) * SiLU(z) -> down
+- ViLLayer: up-proj -> (causal conv, headwise q/k/v, mLSTM) * SiLU(z) -> down,
+  over the tokens reversed when `reverse` (Vision-LSTM's alternating
+  directions)
 - DropPath: per-sample stochastic depth on a residual branch
 - ViLBlock: pre-LN residual ViLLayer
+
+`dtype` follows the JAX modules' (the port's precision policy, cast at the op): None
+computes the projections and the causal conv in the parameters' dtype;
+torch.bfloat16 casts their input and weights to bf16 at the op, as flax's
+`dtype=` does (the Vision-LSTM classifiers' `dtype`). The gates, the mLSTM
+and the norms stay fp32 either way, as in JAX.
 - ViLLayer3D: flattens a (B, C, D, H, W) volume to D*H*W tokens in
   row-major DHW order, runs one ViLBlock in fp32, reshapes back and returns
   the input's dtype: the fp32 island of bf16 compute, so the mLSTM (its
@@ -28,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xlstm_hved_torch.nn.blocks import DoubleConv, at_least_fp32
+from xlstm_hved_torch.nn.blocks import DoubleConv, _cast, at_least_fp32
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise
 from xlstm_hved_torch.ops.mlstm_cuda import mlstm_forward
 
@@ -50,30 +58,37 @@ class LinearHeadwiseExpand(nn.Module):
     """Block-diagonal projection with a (d, d) weight per head. The xLSTM
     init scales it with the OUTER embedding width `init_dim`."""
 
-    def __init__(self, dim: int, num_heads: int, init_dim: int):
+    def __init__(self, dim: int, num_heads: int, init_dim: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
         d = dim // num_heads
         std = math.sqrt(2.0 / (5.0 * init_dim))
         self.weight = nn.Parameter(_normal_(torch.empty(num_heads, d, d), std))
 
     def forward(self, x):
         xh = x.reshape(*x.shape[:-1], self.num_heads, -1)
-        y = torch.einsum("...hd,hed->...he", xh, self.weight)
+        # JAX casts the weight to `dtype`, or else to x's dtype
+        y = torch.einsum("...hd,hed->...he", _cast(xh, self.dtype),
+                         self.weight.to(self.dtype or x.dtype))
         return y.reshape(x.shape)
 
 
 class CausalConv1d(nn.Module):
     """Depthwise causal conv over the token axis of (B, S, F)."""
 
-    def __init__(self, dim: int, kernel_size: int = 4):
+    def __init__(self, dim: int, kernel_size: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel_size = kernel_size
+        self.dtype = dtype
         self.conv = nn.Conv1d(dim, dim, kernel_size, groups=dim)
 
     def forward(self, x):
-        xc = F.pad(x.transpose(1, 2), (self.kernel_size - 1, 0))
-        return self.conv(xc).transpose(1, 2)
+        xc = F.pad(_cast(x, self.dtype).transpose(1, 2), (self.kernel_size - 1, 0))
+        conv = self.conv
+        return conv._conv_forward(xc, _cast(conv.weight, self.dtype),
+                                  _cast(conv.bias, self.dtype)).transpose(1, 2)
 
 
 class ResidualLayerNorm(nn.Module):
@@ -150,34 +165,43 @@ class MatrixLSTMCell(nn.Module):
 class ViLLayer(nn.Module):
     """The mLSTM token mixer: inner width 2*dim, q/k/v in blocks of 4 (2 when
     dim is not a multiple of 4), which is also the mLSTM head count, and a
-    causal conv of width 4."""
+    causal conv of width 4; with `reverse` it runs over the tokens in
+    reverse order and reverses its output back."""
 
     def __init__(self, dim: int, chunk_size: int = 128,
-                 mlstm_kernel: Optional[bool] = None):
+                 mlstm_kernel: Optional[bool] = None, reverse: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         qkv_block = 4 if dim % 4 == 0 else 2
         inner = 2 * dim
         num_proj_heads = inner // qkv_block
+        self.reverse, self.dtype = reverse, dtype
         self.proj_up = nn.Linear(dim, 2 * inner, bias=False)
         _normal_(self.proj_up.weight, math.sqrt(2.0 / (5.0 * dim)))
-        self.conv1d = CausalConv1d(inner)
-        self.q_proj = LinearHeadwiseExpand(inner, num_proj_heads, init_dim=dim)
-        self.k_proj = LinearHeadwiseExpand(inner, num_proj_heads, init_dim=dim)
-        self.v_proj = LinearHeadwiseExpand(inner, num_proj_heads, init_dim=dim)
+        self.conv1d = CausalConv1d(inner, dtype=dtype)
+        self.q_proj = LinearHeadwiseExpand(inner, num_proj_heads, dim, dtype)
+        self.k_proj = LinearHeadwiseExpand(inner, num_proj_heads, dim, dtype)
+        self.v_proj = LinearHeadwiseExpand(inner, num_proj_heads, dim, dtype)
         self.mlstm_cell = MatrixLSTMCell(inner, qkv_block, chunk_size, mlstm_kernel)
         self.learnable_skip = nn.Parameter(torch.ones(inner))
         self.proj_down = nn.Linear(inner, dim, bias=False)
         _normal_(self.proj_down.weight, 2.0 / math.sqrt(dim))
 
+    def _dense(self, layer: nn.Linear, x):
+        return F.linear(_cast(x, self.dtype), _cast(layer.weight, self.dtype))
+
     def forward(self, x):
-        x_mlstm, z = self.proj_up(x).chunk(2, dim=-1)
+        if self.reverse:
+            x = x.flip(1)
+        x_mlstm, z = self._dense(self.proj_up, x).chunk(2, dim=-1)
         x_conv_act = F.silu(self.conv1d(x_mlstm))
         q = self.q_proj(x_conv_act)
         k = self.k_proj(x_conv_act)
         v = self.v_proj(x_mlstm)
         h = self.mlstm_cell(q, k, v).to(x_conv_act.dtype)
         h = h + self.learnable_skip * x_conv_act
-        return self.proj_down(h * F.silu(z))
+        y = self._dense(self.proj_down, h * F.silu(z))
+        return y.flip(1) if self.reverse else y
 
 
 class DropPath(nn.Module):
@@ -207,10 +231,11 @@ class ViLBlock(nn.Module):
     (drawn from the `generator` passed to forward)."""
 
     def __init__(self, dim: int, chunk_size: int = 128,
-                 mlstm_kernel: Optional[bool] = None, drop_path: float = 0.0):
+                 mlstm_kernel: Optional[bool] = None, drop_path: float = 0.0,
+                 reverse: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.norm = ResidualLayerNorm(dim)
-        self.layer = ViLLayer(dim, chunk_size, mlstm_kernel)
+        self.layer = ViLLayer(dim, chunk_size, mlstm_kernel, reverse, dtype)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):

@@ -14,10 +14,12 @@ Three hand-written CUDA kernels port the Pallas TPU kernels of
 
 The Pallas kernels walk the chunks of a head in order (in reverse for the
 backward). On the card only the chunk-to-chunk carry is sequential, so one
-call of each wrapper is three CUDA launches: per (head, chunk) blocks for
-the work of each chunk, a short scan over the chunks per head for the carry
-(C*, n*, m* forward; dC, dn, dm backward), then per (head, chunk) blocks
-again. The wrappers allocate every workspace; the kernels allocate nothing.
+call of each wrapper is three CUDA launches (DH <= 16): per (head, chunk)
+blocks for the work of each chunk, a short scan over the chunks per head
+for the carry (C*, n*, m* forward; dC, dn, dm backward), then per (head,
+chunk) blocks again; the wide path (DH > 16) splits the same phases over
+32-wide tiles of the head in four launches (forward) or ten (backward).
+The wrappers allocate every workspace; the kernels allocate nothing.
 
 As on the TPU, the exact fp32 gate transforms stay tensor ops around the
 launches: `prepare` (padding to a chunk multiple, the per-chunk cumsum of
@@ -37,10 +39,18 @@ the `mlstm_pallas` custom VJP (forward: one `mlstm_fwd` call, saving only
 the raw inputs; backward: one states call and one backward call).
 `bwd_mode="scan"` instead recomputes through `ops.mlstm.mlstm_chunkwise` and
 its autograd, an oracle chosen only by the caller. The wrappers run on CUDA
-tensors and never fall back: CPU tensors, head widths the kernels were not
-built for and a failed build or launch raise. Only `mlstm_backward`, which
-the Function calls, takes the twins when its tensors lie on the CPU, so the
-CPU tests reach the same padding and epilogue code.
+tensors and never fall back: CPU tensors, head widths past MAX_DH and a
+failed build or launch raise. Only `mlstm_backward`, which the Function
+calls, takes the twins when its tensors lie on the CPU, so the CPU tests
+reach the same padding and epilogue code.
+
+Head widths: every DH from 1 to MAX_DH. `prepare` zero-pads DH to
+`padded_width(DH)`: 8 or 16 for the narrow kernels (the flagship's and the
+ViL decoder's widths, a row's head in registers), else a multiple of 32 for
+the wide path (`csrc/mlstm_wide.cuh`: the head dimension in 32-wide tiles,
+the UxLSTM and Vision-LSTM ViLs' DH 32 to 384). Zero columns of q, k, v
+and g are exact, so the kernels and the twins take the true width `dh` for
+the scale 1/sqrt(DH), and the callers slice the padded columns off.
 """
 from __future__ import annotations
 
@@ -55,7 +65,9 @@ from xlstm_hved_torch.ops.mlstm import (MLSTM_EPS, chunk_gates, mlstm_chunkwise,
 from xlstm_hved_torch.utils import cuda_build
 
 SOURCES = ("mlstm_fwd", "mlstm_bwd")
-SUPPORTED_DH = (8, 16)
+NARROW_DH = (8, 16)   # the widths of the narrow kernels' instantiations
+WIDE_TILE = 32        # the wide path's head-dimension tile
+MAX_DH = 512
 MAX_CHUNK = 128
 BWD_MODES = ("fused", "scan")
 
@@ -63,8 +75,8 @@ _launchers = {}
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # function: (source, number of tensor pointers)
-    "mlstm_fwd_launch": ("mlstm_fwd", 12),
-    "mlstm_bwd_launch": ("mlstm_bwd", 22),
+    "mlstm_fwd_launch": ("mlstm_fwd", 16),
+    "mlstm_bwd_launch": ("mlstm_bwd", 30),
 }
 
 
@@ -75,7 +87,7 @@ def _launcher(fn_name: str):
         source, n_ptr = _SIGNATURES[fn_name]
         lib = cuda_build.load(source)
         fn = getattr(lib, fn_name)
-        fn.argtypes = [_PTR] * n_ptr + [_INT, _INT, _INT, _INT, _FLOAT, _INT, _PTR]
+        fn.argtypes = [_PTR] * n_ptr + [_INT] * 5 + [_FLOAT, _INT, _PTR]
         fn.restype = _INT
         error_string = getattr(lib, f"{source}_error_string")
         error_string.argtypes = [_INT]
@@ -84,25 +96,39 @@ def _launcher(fn_name: str):
     return _launchers[fn_name]
 
 
-def _launch(fn_name: str, pointers, dev, BH: int, Sp: int, L: int, DH: int, eps: float):
+def _launch(fn_name: str, pointers, dev, BH: int, Sp: int, L: int, DP: int, dh: int,
+            eps: float):
     fn, error_string = _launcher(fn_name)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(*pointers, BH, Sp, L, DH, eps, dev.index, stream)
+    rc = fn(*pointers, BH, Sp, L, DP, dh, eps, dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: {error_string(rc).decode()} (code {rc})")
+
+
+def padded_width(dh: int) -> int:
+    """The width a head of width dh runs at: 8 or 16 (the narrow kernels) up
+    to 16, else the next multiple of WIDE_TILE (the wide path)."""
+    if not 1 <= dh <= MAX_DH:
+        raise ValueError(f"head width {dh}: the kernels take DH from 1 to {MAX_DH}")
+    if dh <= NARROW_DH[-1]:
+        return next(w for w in NARROW_DH if dh <= w)
+    return -(-dh // WIDE_TILE) * WIDE_TILE
 
 
 def prepare(q, k, v, igate, fgate, chunk_size: int = 128):
     """Pad and precompute the fp32 gate transforms.
 
     q, k, v: (B, NH, S, DH); igate, fgate: (B, NH, S). Returns q, k, v as
-    contiguous fp32 (B*NH, Sp, DH) and a, s, cm as contiguous fp32
-    (B*NH, Sp // L, L), with L = min(chunk_size, S) and Sp a multiple of L.
+    contiguous fp32 (B*NH, Sp, DP), zero-padded to DP = padded_width(DH),
+    and a, s, cm as contiguous fp32 (B*NH, Sp // L, L), with
+    L = min(chunk_size, S) and Sp a multiple of L.
     """
     B, NH, S, DH = q.shape
+    DP = padded_width(DH)
     qp, kp, vp, ip, fp, L = pad_to_chunks(q, k, v, igate, fgate, chunk_size)
     Sp = qp.shape[2]
-    flat = [t.reshape(B * NH, Sp, DH).to(torch.float32).contiguous()
+    widen = (lambda t: F.pad(t, (0, DP - DH))) if DP > DH else (lambda t: t)
+    flat = [widen(t.to(torch.float32)).reshape(B * NH, Sp, DP).contiguous()
             for t in (qp, kp, vp)]
     gates = [t.contiguous() for t in chunk_gates(ip, fp, L)]
     return (*flat, *gates)
@@ -136,22 +162,23 @@ def _readout(qs, kc, vc, a, s, cm, cent, nent, ment, eps: float):
     return dec, attn, inter, q_c, q_n, num, rowsum, e_neg, denom
 
 
-def mlstm_forward_reference(q, k, v, a, s, cm, eps: float = MLSTM_EPS):
+def mlstm_forward_reference(q, k, v, a, s, cm, eps: float = MLSTM_EPS, *, dh: int):
     """Plain twin of `mlstm_fwd` on `prepare`d inputs (the same three phases
-    as `mlstm_forward_states_reference`). Returns h (B*NH, Sp, DH) fp32."""
-    return mlstm_forward_states_reference(q, k, v, a, s, cm, eps)[0]
+    as `mlstm_forward_states_reference`). Returns h (B*NH, Sp, DP) fp32."""
+    return mlstm_forward_states_reference(q, k, v, a, s, cm, eps, dh=dh)[0]
 
 
-def mlstm_forward_states_reference(q, k, v, a, s, cm, eps: float = MLSTM_EPS):
+def mlstm_forward_states_reference(q, k, v, a, s, cm, eps: float = MLSTM_EPS, *, dh: int):
     """Plain twin of `mlstm_fwd_states`, in the kernel's three phases:
     1. every chunk's local state relative to its largest s, cm_{L-1}:
        K_c = sum_p e^{s_p - cm_{L-1}} k_p v_p^T and n_c = sum_p e^{..} k_p;
     2. the carry scan from m* = -1e30: with M' = max(m*, cm_{L-1}),
        C*' = e^{m* - M'} C* + e^{cm_{L-1} - M'} K_c (n* likewise) and
        m*' = a_{L-1} + M', the fp32 operations of the JAX `_m_entry_chain`;
-    3. every chunk's readout from its entry state.
-    Returns h (BH, Sp, DH), cent (BH, nchunks, DH, DH), nent (BH, nchunks,
-    DH) and ment (BH, nchunks), all fp32."""
+    3. every chunk's readout from its entry state, q scaled by 1/sqrt(dh),
+       dh the true head width (the columns past it zero).
+    Returns h (BH, Sp, DP), cent (BH, nchunks, DP, DP), nent (BH, nchunks,
+    DP) and ment (BH, nchunks), all fp32."""
     BH, Sp, DH = q.shape
     nchunks, L = a.shape[1:]
     kc, vc = _chunked(k, L), _chunked(v, L)
@@ -169,14 +196,14 @@ def mlstm_forward_states_reference(q, k, v, a, s, cm, eps: float = MLSTM_EPS):
         n_state = decay_old[:, None] * n_state + decay_new[:, None] * n_loc[:, c]
         m_state = a[:, c, -1] + m_new
     cent, nent, ment = (torch.stack(t, dim=1) for t in zip(*entries))
-    scale = 1.0 / math.sqrt(DH)
+    scale = 1.0 / math.sqrt(dh)
     *_, num, _, _, denom = _readout(_chunked(q * scale, L), kc, vc, a, s, cm,
                                     cent, nent, ment, eps)
     return (num / denom[..., None]).reshape(BH, Sp, DH), cent, nent, ment
 
 
 def mlstm_backward_reference(q, k, v, g, a, s, cm, cent, nent, ment,
-                             eps: float = MLSTM_EPS):
+                             eps: float = MLSTM_EPS, *, dh: int):
     """Plain twin of `mlstm_bwd`, in the kernel's three phases. Every
     max-based stabiliser is held constant (exact; see the JAX module
     docstring), as in the Pallas `_mlstm_bwd_kernel`.
@@ -189,12 +216,12 @@ def mlstm_backward_reference(q, k, v, g, a, s, cm, cent, nent, ment,
        n*_c) + dm_read_c lands on dax[c-1, L-1] (m*' = a_{L-1} + M');
     3. columns, every chunk: dk, dv and ds from the recomputed attention and
        the state update's adjoint under dC_c, dn_c.
-    q, k, v, g: (BH, Sp, DH); a, s, cm: (BH, nchunks, L); the entry states
-    from the states kernel. Returns dq, dk, dv (BH, Sp, DH) and ds, dax
-    (BH, nchunks, L), all fp32."""
+    q, k, v, g: (BH, Sp, DP); a, s, cm: (BH, nchunks, L); the entry states
+    from the states kernel; dh the true head width. Returns dq,
+    dk, dv (BH, Sp, DP) and ds, dax (BH, nchunks, L), all fp32."""
     BH, Sp, DH = q.shape
     nchunks, L = a.shape[1:]
-    scale = 1.0 / math.sqrt(DH)
+    scale = 1.0 / math.sqrt(dh)
     tr = lambda t: t.transpose(-1, -2)
     qs, kc, vc, gc = (_chunked(t, L) for t in (q * scale, k, v, g))
     dec, attn, inter, q_c, q_n, num, rowsum, e_neg, denom = _readout(
@@ -241,17 +268,19 @@ def mlstm_backward_reference(q, k, v, g, a, s, cm, cent, nent, ment,
 
 # ---------------------------------------------------------------- launchers
 
-def _prepared_dims(name, q, a):
-    """(BH, Sp, DH, L) of prepared q (BH, Sp, DH) and a (BH, Sp // L, L),
-    if the kernels were built for them."""
+def _prepared_dims(name, q, a, dh):
+    """(BH, Sp, DP, dh, L) of prepared q (BH, Sp, DP) and a (BH, Sp // L, L)
+    for heads of true width dh, if the kernels take them: DP is
+    padded_width(dh)."""
     if q.dim() != 3 or a.dim() != 3:
         raise ValueError(f"{name}: q and a must be 3-D; got {tuple(q.shape)}, {tuple(a.shape)}")
-    BH, Sp, DH = q.shape
+    BH, Sp, DP = q.shape
     nchunks, L = a.shape[1:]
-    if nchunks * L != Sp or DH not in SUPPORTED_DH or L > MAX_CHUNK:
+    if (nchunks * L != Sp or L > MAX_CHUNK or not 1 <= dh <= MAX_DH
+            or padded_width(dh) != DP):
         raise ValueError(f"{name}: unsupported prepared shapes q {tuple(q.shape)}, "
-                         f"a {tuple(a.shape)}")
-    return BH, Sp, DH, L
+                         f"a {tuple(a.shape)} for head width {dh}")
+    return BH, Sp, DP, dh, L
 
 
 def _pointers(name, tensors, shapes):
@@ -282,76 +311,90 @@ def _workspace(like, sizes):
     return buf, pieces
 
 
-def _forward_launch(name, q, k, v, a, s, cm, eps, states: bool):
-    """The three launches of `csrc/mlstm_fwd.cu`, the entry states and the
-    chunks' local states in one workspace. Returns h, and with `states` the
-    entry states as views of the workspace."""
-    BH, Sp, DH, L = _prepared_dims(name, q, a)
+def _wide(DP: int) -> bool:
+    return DP > NARROW_DH[-1]
+
+
+def _forward_launch(name, q, k, v, a, s, cm, eps, dh, states: bool):
+    """The launches of `csrc/mlstm_fwd.cu`, the entry states, the chunks'
+    local states and (wide path) the attention and row scalars in one
+    workspace. Returns h, and with `states` the entry states as views of the
+    workspace."""
+    BH, Sp, DP, dh, L = _prepared_dims(name, q, a, dh)
     nchunks = Sp // L
     ptrs, dev = _pointers(name, (q, k, v, a, s, cm), (q.shape,) * 3 + ((BH, nchunks, L),) * 3)
-    n_c, n_n, n_m = BH * nchunks * DH * DH, BH * nchunks * DH, BH * nchunks
+    n_c, n_n, n_m = BH * nchunks * DP * DP, BH * nchunks * DP, BH * nchunks
+    n_att, n_a = (BH * nchunks * L * L, BH * Sp) if _wide(DP) else (0, 0)
     out = torch.empty_like(q)
-    buf, (cent, nent, k_loc, n_loc, ment) = _workspace(q, (n_c, n_n, n_c, n_n, n_m))
-    _launch("mlstm_fwd_launch", (*ptrs, out.data_ptr(), k_loc, n_loc, cent, nent, ment),
-            dev, BH, Sp, L, DH, eps)
+    buf, (cent, nent, ment, k_loc, n_loc, attn, rowsum, denom, qn) = _workspace(
+        q, (n_c, n_n, n_m, n_c, n_n, n_att, n_a, n_a, n_a))
+    _launch("mlstm_fwd_launch", (*ptrs, out.data_ptr(), k_loc, n_loc, cent, nent, ment,
+                                 attn, rowsum, denom, qn), dev, BH, Sp, L, DP, dh, eps)
     if not states:
         return out
-    return (out, buf[:n_c].view(BH, nchunks, DH, DH), buf[n_c:n_c + n_n].view(BH, nchunks, DH),
-            buf[-n_m:].view(BH, nchunks))
+    return (out, buf[:n_c].view(BH, nchunks, DP, DP),
+            buf[n_c:n_c + n_n].view(BH, nchunks, DP),
+            buf[n_c + n_n:n_c + n_n + n_m].view(BH, nchunks))
 
 
-def run_kernel(q, k, v, a, s, cm, eps: float = MLSTM_EPS):
+def run_kernel(q, k, v, a, s, cm, eps: float = MLSTM_EPS, *, dh: int):
     """One call of `mlstm_fwd` on `prepare`d CUDA tensors
-    (q, k, v: (BH, Sp, DH); a, s, cm: (BH, Sp // L, L), all contiguous
-    fp32): its three launches, the entry states kept in a workspace.
-    Returns (BH, Sp, DH) fp32, bitwise `run_states_kernel`'s h. Adds one to
-    `run_kernel.launches`."""
-    out = _forward_launch("mlstm_fwd", q, k, v, a, s, cm, eps, states=False)
+    (q, k, v: (BH, Sp, DP); a, s, cm: (BH, Sp // L, L), all contiguous
+    fp32; dh the true head width): its launches, the entry
+    states kept in a workspace. Returns (BH, Sp, DP) fp32, bitwise
+    `run_states_kernel`'s h. Adds one to `run_kernel.launches`."""
+    out = _forward_launch("mlstm_fwd", q, k, v, a, s, cm, eps, dh, states=False)
     run_kernel.launches += 1
     return out
 
 
-def run_states_kernel(q, k, v, a, s, cm, eps: float = MLSTM_EPS):
+def run_states_kernel(q, k, v, a, s, cm, eps: float = MLSTM_EPS, *, dh: int):
     """One call of `mlstm_fwd_states`: as `run_kernel`, and also each
-    chunk's entry state. Returns h (BH, Sp, DH), cent (BH, nchunks, DH, DH),
-    nent (BH, nchunks, DH), ment (BH, nchunks). Adds one to
+    chunk's entry state. Returns h (BH, Sp, DP), cent (BH, nchunks, DP, DP),
+    nent (BH, nchunks, DP), ment (BH, nchunks). Adds one to
     `run_states_kernel.launches`."""
-    result = _forward_launch("mlstm_fwd_states", q, k, v, a, s, cm, eps, states=True)
+    result = _forward_launch("mlstm_fwd_states", q, k, v, a, s, cm, eps, dh, states=True)
     run_states_kernel.launches += 1
     return result
 
 
-def run_bwd_kernel(q, k, v, g, a, s, cm, cent, nent, ment, eps: float = MLSTM_EPS):
-    """One call of `mlstm_bwd` (its three launches) on prepared CUDA
-    tensors and the states kernel's entry states. Returns dq, dk, dv
-    (BH, Sp, DH) and ds, dax (BH, nchunks, L). Adds one to
-    `run_bwd_kernel.launches`."""
-    BH, Sp, DH, L = _prepared_dims("mlstm_bwd", q, a)
+def run_bwd_kernel(q, k, v, g, a, s, cm, cent, nent, ment, eps: float = MLSTM_EPS, *,
+                   dh: int):
+    """One call of `mlstm_bwd` (its launches) on prepared CUDA tensors and
+    the states kernel's entry states (dh the true head width).
+    Returns dq, dk, dv (BH, Sp, DP) and ds, dax (BH, nchunks, L). Adds one
+    to `run_bwd_kernel.launches`."""
+    BH, Sp, DP, dh, L = _prepared_dims("mlstm_bwd", q, a, dh)
     nchunks = Sp // L
     ptrs, dev = _pointers("mlstm_bwd", (q, k, v, g, a, s, cm, cent, nent, ment),
                           (q.shape,) * 4 + ((BH, nchunks, L),) * 3
-                          + ((BH, nchunks, DH, DH), (BH, nchunks, DH), (BH, nchunks)))
-    # three allocations, not twelve: the outputs by shape, and one workspace
+                          + ((BH, nchunks, DP, DP), (BH, nchunks, DP), (BH, nchunks)))
+    # three allocations, not twenty: the outputs by shape, and one workspace
     # for each chunk's readout adjoints of its entry state and its incoming
-    # carry, and each row's denominator and d rowsum
+    # carry, each row's denominator and d rowsum, and the wide path's
+    # attention, dqk, numerator and row and column scalars
     grads, chunk_grads = q.new_empty((3, *q.shape)), a.new_empty((2, *a.shape))
-    n_c, n_n, n_a, n_m = BH * nchunks * DH * DH, BH * nchunks * DH, BH * Sp, BH * nchunks
-    work, (dc_read, dc_carry, dn_read, dn_carry, denom, drow, dm_read) = _workspace(
-        q, (n_c, n_c, n_n, n_n, n_a, n_a, n_m))
+    n_c, n_n, n_a, n_m = BH * nchunks * DP * DP, BH * nchunks * DP, BH * Sp, BH * nchunks
+    n_att, n_num, n_row = ((BH * nchunks * L * L, BH * Sp * DP, n_a) if _wide(DP)
+                           else (0, 0, 0))
+    work, pieces = _workspace(q, (n_c, n_c, n_n, n_n, n_a, n_a, n_m, n_att, n_att, n_num,
+                                  n_row, n_row, n_row, n_row, n_row * (DP // WIDE_TILE)))
     dq, dk, dv = grads.unbind(0)
     ds, dax = chunk_grads.unbind(0)
+    dc_read, dc_carry, dn_read, dn_carry, denom, drow, dm_read, *wide = pieces
     _launch("mlstm_bwd_launch",
             (*ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ds.data_ptr(), dax.data_ptr(),
-             denom, drow, dc_read, dn_read, dm_read, dc_carry, dn_carry),
-            dev, BH, Sp, L, DH, eps)
+             denom, drow, dc_read, dn_read, dm_read, dc_carry, dn_carry, *wide),
+            dev, BH, Sp, L, DP, dh, eps)
     run_bwd_kernel.launches += 1
     return dq, dk, dv, ds, dax
 
 
 # Calls of each wrapper since its count was last set to 0 (read by
-# chip_smoke.py). One call enqueues three CUDA kernels: chunk states, carry
-# scan and readout for the forward wrappers; rows, reverse scan and columns
-# for the backward.
+# chip_smoke.py). One call enqueues three CUDA kernels on the narrow path
+# (chunk states, carry scan and readout for the forward wrappers; rows,
+# reverse scan and columns for the backward), four (forward) or ten
+# (backward) on the wide path.
 run_kernel.launches = 0
 run_states_kernel.launches = 0
 run_bwd_kernel.launches = 0
@@ -384,17 +427,18 @@ def mlstm_backward(q, k, v, igate, fgate, g, chunk_size: int = 128,
     B, NH, S, DH = q.shape
     prepared = prepare(q, k, v, igate, fgate, chunk_size)
     qf, kf, vf, a, s, cm = prepared
-    Sp = qf.shape[1]
-    gf = F.pad(g.to(torch.float32), (0, 0, 0, Sp - S)).reshape(B * NH, Sp, DH).contiguous()
+    Sp, DP = qf.shape[1:]
+    gf = F.pad(g.to(torch.float32), (0, DP - DH, 0, Sp - S)).reshape(B * NH, Sp, DP).contiguous()
     if q.device.type == "cuda":
-        _, cent, nent, ment = run_states_kernel(*prepared, eps)
-        grads = run_bwd_kernel(qf, kf, vf, gf, a, s, cm, cent, nent, ment, eps)
+        _, cent, nent, ment = run_states_kernel(*prepared, eps, dh=DH)
+        grads = run_bwd_kernel(qf, kf, vf, gf, a, s, cm, cent, nent, ment, eps, dh=DH)
     else:
-        _, cent, nent, ment = mlstm_forward_states_reference(*prepared, eps)
-        grads = mlstm_backward_reference(qf, kf, vf, gf, a, s, cm, cent, nent, ment, eps)
+        _, cent, nent, ment = mlstm_forward_states_reference(*prepared, eps, dh=DH)
+        grads = mlstm_backward_reference(qf, kf, vf, gf, a, s, cm, cent, nent, ment, eps,
+                                         dh=DH)
     dq, dk, dv, ds, dax = grads
     di, df = gate_grads(ds, dax, fgate, S)
-    unpad = lambda t: t.reshape(B, NH, Sp, DH)[:, :, :S]
+    unpad = lambda t: t.reshape(B, NH, Sp, DP)[:, :, :S, :DH]
     return (unpad(dq).to(q.dtype), unpad(dk).to(k.dtype), unpad(dv).to(v.dtype),
             di.to(igate.dtype), df.to(fgate.dtype))
 
@@ -409,8 +453,8 @@ class MLSTMFunction(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, igate, fgate)
         ctx.chunk_size, ctx.eps, ctx.bwd_mode = chunk_size, eps, bwd_mode
         B, NH, S, DH = q.shape
-        out = run_kernel(*prepare(q, k, v, igate, fgate, chunk_size), eps)
-        return out.reshape(B, NH, -1, DH)[:, :, :S]
+        out = run_kernel(*prepare(q, k, v, igate, fgate, chunk_size), eps, dh=DH)
+        return out.reshape(B, NH, -1, out.shape[-1])[:, :, :S, :DH]
 
     @staticmethod
     def backward(ctx, g):
@@ -437,9 +481,8 @@ def _check(q, k, v, igate, fgate, chunk_size, bwd_mode):
                          f"{tuple(igate.shape)}, {tuple(fgate.shape)}")
     if not all(t.is_floating_point() for t in tensors):
         raise TypeError("mlstm_forward takes floating-point tensors")
-    if q.shape[-1] not in SUPPORTED_DH:
-        raise ValueError(f"head width {q.shape[-1]} not built; the kernel "
-                         f"supports DH in {SUPPORTED_DH}")
+    if not 1 <= q.shape[-1] <= MAX_DH:
+        raise ValueError(f"head width {q.shape[-1]}: the kernels take DH from 1 to {MAX_DH}")
     if not 0 < chunk_size <= MAX_CHUNK:
         raise ValueError(f"chunk_size must be in (0, {MAX_CHUNK}]; got {chunk_size}")
     devices = {t.device for t in tensors}

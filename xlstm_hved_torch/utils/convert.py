@@ -6,9 +6,12 @@ The port names its submodules after the flax scopes, so a flax leaf
 and `last/kernel` alike):
 
 - 3D conv kernel (k, k, k, Cin, Cout)           -> (Cout, Cin, k, k, k)
+- 2D conv kernel (kh, kw, Cin, Cout)            -> (Cout, Cin, kh, kw) (the 2-D
+  UxLSTM nets, VisionLSTM's patch embedding)
 - block-diagonal conv kernel (M, k, k, k, cin, cout) -> (M*cout, cin, k, k, k),
   the weight of the grouped conv (stream m owns outputs [m*cout, (m+1)*cout));
-  its bias (M, cout) is flattened the same way
+  its bias (M, cout) is flattened the same way (the HVED folded encoders,
+  and U-HeMIS's four `nn.vmap`ped encoder streams)
 - CausalConv1d kernel (k, 1, C)                 -> (C, 1, k)
 - Dense kernel (in, out)                        -> Linear weight (out, in)
   (DuSE's fc_*, the gates' Dense_0 / Dense_1)
@@ -17,7 +20,8 @@ and `last/kernel` alike):
 - GroupNorm scale / bias                        -> weight / bias
 - PReLU alpha ()                                -> weight (1,)
 - every other leaf (LinearHeadwiseExpand weight (NH, out_d, in_d), norm
-  weights, learnable_skip, 1D biases) is kept as it is.
+  weights, learnable_skip, 1D biases, the Vision-LSTM position embeddings
+  `embed` (1, *grid, dim) and `pos_embed` (1, S, dim)) is kept as it is.
 """
 from __future__ import annotations
 
@@ -45,6 +49,8 @@ def _param(path: tuple, leaf: np.ndarray):
             leaf = leaf.transpose(0, 5, 4, 1, 2, 3).reshape(m * cout, cin, kd, kh, kw)
         elif leaf.ndim == 5:
             leaf = leaf.transpose(4, 3, 0, 1, 2)
+        elif leaf.ndim == 4:
+            leaf = leaf.transpose(3, 2, 0, 1)
         elif leaf.ndim == 3:
             leaf = leaf.transpose(2, 1, 0)
         elif leaf.ndim == 2:

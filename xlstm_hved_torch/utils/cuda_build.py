@@ -3,8 +3,9 @@ ctypes: the CUDA kernels and the host C++ NIfTI decoder.
 
 Each `csrc/<name>.cu` or `csrc/<name>.cc` exposes a plain C interface and is
 compiled on first use into `_build/<hash>/lib<name>.so` inside the package,
-keyed by a hash of the source and the command's flags, so an edited source
-rebuilds and an unchanged one is reused within a checkout:
+keyed by a hash of the source, the headers beside it (`csrc/*.cuh`) and the
+command's flags, so an edited source or header rebuilds and an unchanged one
+is reused within a checkout:
 - `.cu` with `nvcc -O3 -gencode arch=compute_90a,code=sm_90a -shared`. No
   fast-math flag: the mLSTM normaliser amplifies approximate exponentials.
 - `.cc` with `g++ -O3 -fPIC -shared -std=c++17 ... -lz -lpthread`, for the
@@ -78,7 +79,8 @@ def _command(source: Path, out: Path) -> List[str]:
 def library_path(name: str) -> Path:
     source = _source(name)
     flags, libs = _flags(source)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags + libs).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(flags + libs).encode())
     return BUILD_DIR / digest.hexdigest()[:16] / f"lib{name}.so"
 
 
