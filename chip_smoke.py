@@ -132,6 +132,26 @@ plain twin):
              batch 2 of a seeded weighted sum of its outputs through the
              kernels against the plain mLSTM's, per tensor to phase 6's rule
              (cuDNN deterministic), 3 / 3 / 3 launches, ms and peak
+ 12. import  the upstream .pth import, on its own generator, cuDNN
+             deterministic: the flagship (f_maps 4, fp32, seeded weights
+             and BatchNorm statistics) and its Discriminator(64, 4) written
+             under upstream key names (tests/_torch_upstream_names.py) with
+             torch.save, as {'model_sd': ...} and as a bare dict, read back
+             through load_reference_checkpoint / disc_params_from_torch into
+             models seeded otherwise: the 128^3 seg+recon forward bit for bit
+             the direct model's with one mlstm_fwd launch, D's output on the
+             (seg, recon) pair bit for bit; U_HVEDNet3D, FusionUNet3D,
+             U_HeMIS (128^3) and the 3-D UXlstmEnc of phase 11's plan (batch
+             2, 128^3, 3 mlstm_fwd launches) through their importers, each
+             forward bit for bit its direct twin's. Then the A9 blocks at full
+             width, fp32, batch 1, the offset convs seeded to offsets of 1.5
+             voxels (standard deviation) so the gather interpolates and
+             clamps: DeformConv3d 32->32 at 64^3, ResFormerBlock(deform)
+             16->32 at stride 2 from 128^3, AttDeformConv3d 32->32 at 64^3,
+             DuRegisterDuSE(32) at 80x80x40, ParallelDecoder and FCNHead on
+             16 ch 128^3, 32 ch 64^3, 64 ch 32^3: forward and the gradient of
+             a seeded weighted sum finite, the forward against an fp64 copy
+             on the card (phase 4's seg bound), ms and peak memory
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Bounds:
@@ -1875,11 +1895,7 @@ def xlstm_models():
 def _seeded_pair(build, dev, seed: int = 0):
     """The model through the kernels and its twin through the plain mLSTM,
     on the same seeded weights, in eval mode on `dev`."""
-    import torch
-
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = build(None)
+    model = _seeded_module(lambda: build(None), seed)
     plain = build(False)
     plain.load_state_dict(model.state_dict())
     return model.to(dev).eval(), plain.to(dev).eval()
@@ -2069,6 +2085,298 @@ def check_zoo(dev, gen, root, loader_wait):
     return f"{len(lines)} checks: " + " | ".join(line.split(":")[0] for line in lines)
 
 
+IMPORT_CROP = (128, 128, 128)   # the imported forwards and the blocks' finest scale
+IMPORT_DUREG = (80, 80, 40)     # DuRegisterDuSE's upstream input size
+IMPORT_BLOCK_OFFSET_STD = 1.5   # voxels: the gather interpolates and clamps
+
+
+def _upstream_names():
+    """The test-only inverse rename (tests/_torch_upstream_names.py, no JAX):
+    the port's state dicts under upstream key names."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_upstream_names
+
+    return _torch_upstream_names
+
+
+def _seeded_module(build, seed: int):
+    """build() under torch seed `seed` (the global RNG left as it was)."""
+    import torch
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build()
+
+
+def _randomise_running_stats(model, gen):
+    """Seeded BatchNorm running statistics, so an import must carry them."""
+    import torch
+
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(0.05 * torch.randn(buf.shape, generator=gen, device=buf.device))
+            elif name.endswith("running_var"):
+                buf.copy_(0.5 + torch.rand(buf.shape, generator=gen, device=buf.device))
+
+
+def _bitwise(label, got, want, lines, launches=None, expected=None):
+    got, want = _outputs(got), _outputs(want)
+    d = max(absmax(g - w) for g, w in zip(got, want))
+    if len(got) != len(want) or d != 0.0 or not finite(*got):
+        fail(f"{label}: the imported model's output differs from its direct twin's "
+             f"(max|d| {d:.3e}, finite {finite(*got)})")
+    if expected is not None and launches != expected:
+        fail(f"{label}: {launches} mlstm_fwd launches, expected {expected}")
+    line = (f"{label}: imported == direct bit for bit on {[tuple(o.shape) for o in got]}"
+            + ("" if launches is None else f", mlstm_fwd launches {launches}"))
+    print(f"  {line}", flush=True)
+    lines.append(line)
+
+
+def import_flagship(dev, gen, root, lines):
+    """Phase 12, 1: the flagship and its Discriminator written under upstream
+    key names (as {'model_sd': ...} and as a bare dict), read back through
+    load_reference_checkpoint / disc_params_from_torch into models seeded
+    otherwise: the IMPORT_CROP seg+recon forward and D's output bit for bit
+    the direct models'. Returns the imported forwards' mlstm_fwd launches."""
+    import torch
+    from xlstm_hved_torch.config import get_config
+    from xlstm_hved_torch.models import Discriminator, find_model_using_name
+    from xlstm_hved_torch.ops import mlstm_cuda as mc
+    from xlstm_hved_torch.utils.torch_import import (disc_params_from_torch,
+                                                     load_reference_checkpoint)
+
+    names = _upstream_names()
+    cfg = get_config("XLSTM_HVED")
+    direct = find_model_using_name("XLSTM_HVED", device=dev, seed=0)
+    _randomise_running_stats(direct, gen)
+    disc = _seeded_module(lambda: Discriminator(f_maps=64, kernel=4), 0).to(dev).eval()
+    upstream = {k: v.cpu() for k, v in names.hved_upstream(direct.state_dict(), cfg).items()}
+    paths = {"model_sd": os.path.join(root, "xlstm_hved.pth"),
+             "bare": os.path.join(root, "xlstm_hved_bare.pth")}
+    torch.save({"model_sd": upstream, "epoch": 0}, paths["model_sd"])
+    torch.save(upstream, paths["bare"])
+    disc_path = os.path.join(root, "discriminator.pth")
+    torch.save({k: v.cpu() for k, v in names.disc_upstream(disc.state_dict()).items()},
+               disc_path)
+    keep = torch.ones(4, dtype=torch.bool, device=dev)
+    x = torch.rand(1, 4, *IMPORT_CROP, generator=gen, device=dev)
+    total = 0
+    crop = "x".join(map(str, IMPORT_CROP))
+    with torch.inference_mode():
+        want = direct(x, keep=keep, recon=True, deterministic=True)
+        for form, path in paths.items():
+            model = find_model_using_name("XLSTM_HVED", device=dev, seed=1)
+            model.load_state_dict(load_reference_checkpoint(path, cfg), strict=True)
+            mc.run_kernel.launches = 0
+            got = model(x, keep=keep, recon=True, deterministic=True)
+            torch.cuda.synchronize()
+            total += mc.run_kernel.launches
+            _bitwise(f"XLSTM_HVED from an upstream .pth ({form}) forward {crop}",
+                     (got.seg, got.recon), (want.seg, want.recon), lines,
+                     mc.run_kernel.launches, 1)
+            del model, got
+        fresh = _seeded_module(lambda: Discriminator(f_maps=64, kernel=4), 1).to(dev).eval()
+        fresh.load_state_dict(disc_params_from_torch(torch.load(disc_path)), strict=True)
+        pair = torch.cat([want.seg, want.recon], dim=1)
+        _bitwise("Discriminator(64, 4) from an upstream .pth on the (seg, recon) pair",
+                 fresh(pair), disc(pair), lines)
+    del direct, disc, fresh, want, pair, x
+    torch.cuda.empty_cache()
+    return total
+
+
+def import_others(dev, gen, lines):
+    """Phase 12, 2: U_HVEDNet3D, FusionUNet3D, U_HeMIS and the 3-D UXlstmEnc
+    of phase 11's plan through their importers into models seeded otherwise:
+    each forward bit for bit its direct twin's. Returns the mlstm_fwd
+    launches of the imported forwards."""
+    import torch
+    from xlstm_hved_torch.config import get_config
+    from xlstm_hved_torch.models import build_uxlstm_from_plans, find_model_using_name
+    from xlstm_hved_torch.ops import mlstm_cuda as mc
+    from xlstm_hved_torch.utils import torch_import as ti
+
+    names = _upstream_names()
+    keep = torch.ones(4, dtype=torch.bool, device=dev)
+    hved_fwd = lambda m, x: (lambda o: (o.seg, o.recon))(
+        m(x, keep=keep, recon=True, deterministic=True))
+    plain_fwd = lambda m, x: m(x)
+    uxlstm = lambda: build_uxlstm_from_plans(XLSTM_PLANS_3D, 4, 4, True, "enc")
+    cases = (   # label, build(seed), upstream(state), import(upstream, model), input, fwd, ViLs
+        ("U_HVEDNet3D", lambda s: find_model_using_name("U_HVEDNet3D", device=dev, seed=s),
+         lambda st: names.hved_upstream(st, get_config("U_HVEDNet3D")),
+         lambda sd, m: ti.hved_params_from_torch(sd, get_config("U_HVEDNet3D")),
+         (1, 4, *IMPORT_CROP), hved_fwd, 0),
+        ("FusionUNet3D", lambda s: find_model_using_name("FusionUNet3D", device=dev, seed=s),
+         lambda st: names.fusion_upstream(st, get_config("FusionUNet3D")),
+         lambda sd, m: ti.fusion_params_from_torch(sd, get_config("FusionUNet3D")),
+         (1, 4, *IMPORT_CROP), hved_fwd, 0),
+        ("U_HeMIS", lambda s: find_model_using_name("U_HeMIS", device=dev, seed=s),
+         names.hemis_upstream, lambda sd, m: ti.hemis_params_from_torch(sd),
+         (1, 4, *IMPORT_CROP), plain_fwd, 0),
+        ("UXlstmEnc 3-D", lambda s: _seeded_module(uxlstm, s).to(dev).eval(),
+         names.uxlstm_upstream, ti.uxlstm_params_from_torch,
+         (2, 4, *XLSTM_PLANS_3D["patch_size"]), plain_fwd, 3),
+    )
+    total = 0
+    for label, build, to_upstream, importer, shape, fwd, vils in cases:
+        direct = build(0)
+        _randomise_running_stats(direct, gen)
+        upstream = {k: v.cpu() for k, v in to_upstream(direct.state_dict()).items()}
+        model = build(1)
+        model.load_state_dict(importer(upstream, model), strict=True)
+        x = torch.rand(*shape, generator=gen, device=dev)
+        with torch.inference_mode():
+            want = fwd(direct, x)
+            mc.run_kernel.launches = 0
+            got = fwd(model, x)
+            torch.cuda.synchronize()
+            launches = mc.run_kernel.launches
+        total += launches
+        _bitwise(f"{label} imported forward {shape}", got, want, lines, launches, vils)
+        del direct, model, x, want, got
+        torch.cuda.empty_cache()
+    return total
+
+
+def _seed_offsets(block, xs, gen):
+    """Seed every offset conv of `block` so that its offsets on the inputs
+    `xs` have a standard deviation of IMPORT_BLOCK_OFFSET_STD voxels (before
+    AttDeformConv3d's attention gate). Returns the number of offset convs."""
+    import torch
+
+    convs = [m for n, m in block.named_modules() if n.endswith("offset_conv")]
+    if not convs:
+        return 0
+    seen = {}
+    hooks = [c.register_forward_hook(lambda m, i, o: seen.__setitem__(m, float(o.std())))
+             for c in convs]
+    with torch.no_grad():
+        for c in convs:
+            c.weight.copy_(torch.randn(c.weight.shape, generator=gen, device=xs[0].device))
+        block(*xs)
+        for c in convs:
+            c.weight.mul_(IMPORT_BLOCK_OFFSET_STD / seen[c])
+    for h in hooks:
+        h.remove()
+    return len(convs)
+
+
+def import_blocks(dev, gen, lines):
+    """Phase 12, 3: the A9 blocks at full width, fp32, batch 1, the offset
+    convs seeded to offsets of about +-1.5 voxels: forward and the gradient
+    of a seeded weighted sum finite, the forward against an fp64 copy on the
+    card (phase 4's bound), ms (forward; forward and backward) and peak."""
+    import copy
+
+    import torch
+    from xlstm_hved_torch.nn.dusfe import DuRegisterDuSE
+    from xlstm_hved_torch.nn.skr import FCNHead, ParallelDecoder, ResFormerBlock
+    from xlstm_hved_torch.ops.deform import AttDeformConv3d, DeformConv3d
+
+    # the flagship's levels 0-2 at IMPORT_CROP: 4 streams x f_maps 4 = 16
+    # channels at full size, 32 at a half, 64 at a quarter
+    sizes = [tuple(n // 2 ** i for n in IMPORT_CROP) for i in range(3)]
+    scales = tuple((1, 16 * 2 ** i, *size) for i, size in enumerate(sizes))
+    name = ["x".join(map(str, size)) for size in sizes]
+    blocks = (   # label, build, input shapes
+        (f"DeformConv3d 32->32 at {name[1]}", lambda: DeformConv3d(32, 32), scales[1:2]),
+        (f"ResFormerBlock(deform) 16->32 stride 2 from {name[0]}",
+         lambda: ResFormerBlock(16, 32, stride=2, deform=True), scales[:1]),
+        (f"AttDeformConv3d 32->32 at {name[1]}", lambda: AttDeformConv3d(32, 32),
+         ((1, 32, *sizes[1]),)),
+        (f"DuRegisterDuSE(32) at {'x'.join(map(str, IMPORT_DUREG))}",
+         lambda: DuRegisterDuSE(32, img_size=IMPORT_DUREG),
+         ((1, 1, *IMPORT_DUREG), (1, 1, *IMPORT_DUREG))),
+        ("ParallelDecoder(16, 32, 64 -> 3)", lambda: ParallelDecoder(16, 32, 64, 3), scales),
+        ("FCNHead(16, 32, 64 -> 3)", lambda: FCNHead(16, 32, 64, 3), scales),
+    )
+    for label, build, shapes in blocks:
+        block = _seeded_module(build, 0).to(dev).eval()
+        _randomise_running_stats(block, gen)
+        xs = [torch.rand(*s, generator=gen, device=dev) for s in shapes]
+        n_offset = _seed_offsets(block, xs, gen)
+        block64 = copy.deepcopy(block).double()
+        with torch.no_grad():
+            out = _outputs(block(*xs))
+            ref = _outputs(block64(*[x.double() for x in xs]))
+        d = max(absmax(o.double() - r) for o, r in zip(out, ref))
+        top = max(absmax(r) for r in ref)
+        weights = [torch.randn(o.shape, generator=gen, device=dev) for o in out]
+        del block64, ref, out
+        torch.cuda.empty_cache()
+        params = list(block.parameters())
+        xg = [x.requires_grad_() for x in xs]
+
+        def step():
+            loss = sum((o * w).sum() for o, w in zip(_outputs(block(*xg)), weights))
+            return torch.autograd.grad(loss, xg + params)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        grads = step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if not finite(*grads):
+            fail(f"{label}: non-finite gradient")
+        if d > SEG_ATOL:
+            fail(f"{label}: fp32 forward against fp64 max|d| {d:.3e} (bound {SEG_ATOL})")
+        del grads
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: block(*xs), warmup=1, iters=3)
+        step_ms = cuda_ms(step, warmup=1, iters=3)
+        line = (f"{label}: fp32 vs fp64 max|d| {d:.3e} (max|ref| {top:.3e}, bound {SEG_ATOL}), "
+                f"gradients finite ({len(params)} parameters, {n_offset} offset convs at "
+                f"{IMPORT_BLOCK_OFFSET_STD} voxels), forward {fwd_ms:.2f} ms, forward and "
+                f"backward {step_ms:.2f} ms, peak {peak:.2f} GiB")
+        if isinstance(block, DeformConv3d):
+            line += " | forward split: " + deform_split(block, xs[0])
+        print(f"  {line}", flush=True)
+        lines.append(line)
+        del block, xs, xg, params, weights
+        torch.cuda.empty_cache()
+
+
+def deform_split(block, x) -> str:
+    """A DeformConv3d forward's parts, each timed alone (CUDA events), beside
+    a dense 3^3 conv of the same widths (cuDNN)."""
+    import torch
+    from xlstm_hved_torch.nn.blocks import conv3d
+    from xlstm_hved_torch.ops.deform import _same_pad, deform_gather
+
+    ks, st = block.kernel_size, block.stride
+    dense = conv3d(x.shape[1], block.proj.out_channels, ks, st, bias=False).to(x.device)
+    with torch.no_grad():
+        offsets = block.offset_conv(_same_pad(x, ks, st))
+        gathered = deform_gather(x, offsets, ks, st)
+        parts = {"offset conv": lambda: block.offset_conv(_same_pad(x, ks, st)),
+                 "gather": lambda: deform_gather(x, offsets, ks, st),
+                 "proj": lambda: block.proj(gathered),
+                 "a dense 3^3 conv of the same widths": lambda: dense(x)}
+        return ", ".join(f"{name} {cuda_ms(fn, warmup=1, iters=3):.2f} ms"
+                         for name, fn in parts.items())
+
+
+def check_import(dev, gen):
+    """Phase 12, the upstream .pth import and the A9 blocks. Returns the
+    mlstm_fwd launches of the imported forwards and a summary."""
+    import torch
+
+    lines = []
+    torch.backends.cudnn.deterministic = True   # the bit-for-bit comparisons
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as root:
+            launches = import_flagship(dev, gen, root, lines)
+        launches += import_others(dev, gen, lines)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    import_blocks(dev, gen, lines)
+    return {"launches": launches,
+            "summary": f"{len(lines)} checks: " + " | ".join(l.split(":")[0] for l in lines)}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "xlstm_hved_torch")):
         fail("xlstm_hved_torch/ is not beside chip_smoke.py; run it from a checkout")
@@ -2212,6 +2520,13 @@ def main():
     for name in KERNELS:
         rows[name]["launches_xlstm"] = xl["launches"][name]
     done("xlstm", t0, xl["summary"])
+
+    # ---- 12. import: the upstream .pth import and the A9 blocks, on its own generator
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    imp = check_import(dev, torch.Generator(device=dev).manual_seed(12))
+    rows["mlstm_fwd"]["launches_import"] = imp["launches"]
+    done("import", t0, imp["summary"])
 
     for name, row in rows.items():
         row["max_abs_err"] = worst[name]
