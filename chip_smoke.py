@@ -152,6 +152,26 @@ plain twin):
              16 ch 128^3, 32 ch 64^3, 64 ch 32^3: forward and the gradient of
              a seeded weighted sum finite, the forward against an fp64 copy
              on the card (phase 4's seg bound), ms and peak memory
+ 13. parallel data parallelism (xlstm_hved_torch/parallel/): cli.train one
+             epoch on phase 7's dataset at the CLI defaults, plain, then
+             --distributed in this process as the one rank of an env://
+             group (NCCL, printed), cuDNN deterministic with phase 9's
+             deterministic upsampling: the distributed run's CSV row bit
+             for bit the plain run's, 2/2/2 launches per step; in that
+             group the bf16
+             step at 128x192x128 with and without the mesh (its G and D
+             gradient all-reduce; plain, group, group, plain) and the
+             gradient bytes all-reduced per step. Then the fp32 G+D step at
+             128^3 on two ranks at batch 1 (two child processes of this
+             script on this card, gloo: NCCL refuses two ranks on one
+             device) against this process at batch 2 on the same weights
+             and input, cuDNN deterministic: the G and D gradients (Adam's
+             first moment after the first step) to phase 6's rule, loss and
+             loss_d within 1e-5, the BatchNorm running statistics within
+             1e-6, the ranks equal to each other, 2/2/2 launches per rank;
+             the ranks' step time beside one rank's at batch 1; the sharded
+             15-subset sweep of a 128x192x128 volume over the two ranks
+             against the hoisted sweep (phase 4's bounds), seconds each
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Bounds:
@@ -2377,10 +2397,407 @@ def check_import(dev, gen):
             "summary": f"{len(lines)} checks: " + " | ".join(l.split(":")[0] for l in lines)}
 
 
+PARALLEL_RANKS = 2
+PARALLEL_SEED = 13
+PARALLEL_TIMEOUT_S = 600
+# the two-rank fp32 step (batch 1 per rank) and the sharded sweep's volume
+# and patch; the children read them from the settings the parent passes
+PARALLEL_SETTINGS = {"crop": (128, 128, 128), "sweep_shape": CROPS[1],
+                     "patch": (128, 128, 128), "disc": (64, 4)}
+# JAX's own bound on data-parallel losses (tests/test_parallel.py), and the
+# BatchNorm running statistics (momentum 0.01 of batch moments that differ
+# in the fp32 order of their sums)
+PARALLEL_LOSS_ATOL, PARALLEL_STATS_ATOL = 1e-5, 1e-6
+PARALLEL_STEPS_PER_ARM = 3   # timed steps per arm of the world-1 step comparison
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_inputs(dev, crop):
+    """The two-rank step's global batch of 2, drawn alike in every process:
+    seeded volumes and nested masks (the second rolled, so that the ranks'
+    BatchNorm and dice sums differ)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED)
+    x = torch.rand(2, 4, *crop, generator=gen, device=dev)
+    _, mask = synthetic_batch(gen, dev, crop)
+    mask = torch.cat([mask, mask.roll(shifts=crop[0] // 8, dims=2)])
+    return x, mask
+
+
+def parallel_state(dev, x, disc):
+    """The flagship G (seed 0, fp32) and Discriminator(*disc), init
+    "reference", with Adam, as every process builds them."""
+    from xlstm_hved_torch.config import TrainConfig
+    from xlstm_hved_torch.engine.train import create_train_state
+    from xlstm_hved_torch.models import Discriminator, find_model_using_name
+
+    cfg = TrainConfig(crop_size=tuple(x.shape[2:]))
+    model = find_model_using_name("XLSTM_HVED", device=dev, seed=0)
+    state = create_train_state(model, Discriminator(f_maps=disc[0], kernel=disc[1]), cfg,
+                               seed=0, sample=x[:1], init_scheme="reference")
+    return cfg, state
+
+
+def step_record(state, metrics) -> dict:
+    """A first step as the comparison reads it: its metrics, G's and D's
+    gradients (Adam's first moment after the first step over 1 - beta1: the
+    gradient plus the weight decay's 1e-5 * p, the same parameters in every
+    process) and the BatchNorm running statistics, on the host."""
+
+    def grads(opt, module):
+        beta1 = opt.param_groups[0]["betas"][0]
+        return {n: (opt.state[p]["exp_avg"] / (1.0 - beta1)).cpu()
+                for n, p in module.named_parameters()}
+
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                g=grads(state.opt_g, state.model), d=grads(state.opt_d, state.disc),
+                stats={n: b.detach().to("cpu", copy=True)
+                       for n, b in state.model.named_buffers() if "running_" in n})
+
+
+def parallel_rank(rank: int, port: int, root: str, settings: dict):
+    """One of the two ranks of phase 13, a process of its own on the card
+    the parent uses (gloo: NCCL refuses two ranks on one device): the first
+    step on its row of the global batch (cuDNN deterministic, deterministic
+    upsampling), two more steps for the time, then the sharded sweep; rank
+    0 also runs the one-process hoisted sweep. Writes its record under
+    `root`."""
+    import torch
+    import torch.distributed as dist
+    from xlstm_hved_torch.engine.evaluate import (make_hoisted_subset_sweep,
+                                                  make_sharded_subset_sweep)
+    from xlstm_hved_torch.engine.train import make_train_step
+    from xlstm_hved_torch.models import find_model_using_name
+    from xlstm_hved_torch.parallel.mesh import initialize_distributed, make_mesh, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    initialize_distributed(f"127.0.0.1:{port}", PARALLEL_RANKS, rank, backend="gloo")
+    mesh = make_mesh(device=settings["device"])
+    dev = mesh.device
+    counters = mlstm_counters()
+    out = {"rank": rank, "backend": dist.get_backend()}
+    with deterministic_upsampling():
+        x, mask = parallel_inputs(dev, tuple(settings["crop"]))
+        cfg, state = parallel_state(dev, x[:1], settings["disc"])
+        x, mask = shard_batch(mesh, (x, mask))
+        step = make_train_step(state.model, state.disc, cfg)
+        for c in counters.values():
+            c.launches = 0
+        _sync(dev)
+        t = time.perf_counter()
+        with mesh:
+            state, metrics = step(state, x, mask)
+        _sync(dev)
+        out["first_ms"] = 1e3 * (time.perf_counter() - t)
+        out["launches"] = {name: c.launches for name, c in counters.items()}
+        out["record"] = step_record(state, metrics)
+        times = []
+        for _ in range(2):
+            t = time.perf_counter()
+            with mesh:
+                state, _ = step(state, x, mask)
+            _sync(dev)
+            times.append(1e3 * (time.perf_counter() - t))
+        out["step_ms"] = times
+    del state, step, x, mask
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    model = find_model_using_name("XLSTM_HVED", device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(PARALLEL_SEED + 1)
+    vol = torch.rand(1, 4, *settings["sweep_shape"], generator=gen, device=dev)
+    sweep = make_sharded_subset_sweep(model, mesh, settings["patch"], recon_channels=4)
+    counters["mlstm_fwd"].launches = 0
+    _sync(dev)
+    t = time.perf_counter()
+    seg, rec = sweep(model, vol)
+    _sync(dev)
+    out["sweep_s"] = time.perf_counter() - t
+    out["sweep_launches"] = counters["mlstm_fwd"].launches
+    out["sweep_shape"] = (tuple(seg.shape), tuple(rec.shape))
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        hoisted = make_hoisted_subset_sweep(model, settings["patch"], recon_channels=4)
+        _sync(dev)
+        t = time.perf_counter()
+        seg1, rec1 = hoisted(model, vol)
+        _sync(dev)
+        out["hoisted_s"] = time.perf_counter() - t
+        out["seg_d"], out["rec_d"] = absmax(seg - seg1), absmax(rec - rec1)
+        out["finite"] = finite(seg, rec)
+    torch.save(out, os.path.join(root, f"parallel_rank{rank}.pt"))
+
+
+def parallel_cli(dev, root, train_dir, valid_dir, extra):
+    """Phase 13, 1: cli.train one epoch on phase 7's dataset, plain, then
+    --distributed in this process as the one rank of an env:// group (the
+    backend the device asks for: NCCL on the card), with cuDNN deterministic
+    and deterministic upsampling: the CSV rows bit for bit, the launches,
+    the backend. Then, in the group, the step at the CLI defaults with and
+    without the mesh (its gradient all-reduce), alternating. Returns the
+    numbers and a summary; leaves no process group behind."""
+    import torch
+    import torch.distributed as dist
+    from xlstm_hved_torch.cli import train as train_main
+    from xlstm_hved_torch.config import TrainConfig
+    from xlstm_hved_torch.engine.train import create_train_state, make_train_step
+    from xlstm_hved_torch.models import Discriminator, find_model_using_name
+    from xlstm_hved_torch.nn.blocks import compute_dtype
+    from xlstm_hved_torch.parallel.mesh import backend_for, make_mesh
+
+    counters = mlstm_counters()
+    common = ["--device", dev.type, "--num_epochs", "1", "--train_dir", train_dir,
+              "--valid_dir", valid_dir] + list(extra)
+
+    def run(name, flags=()):
+        for c in counters.values():
+            c.launches = 0
+        out = os.path.join(root, f"parallel_{name}")
+        summary = train_main.main(common + ["--out_dir", out] + list(flags))
+        _sync(dev)
+        rows = read_csv(os.path.join(out, "XLSTM_HVED", "loss_and_metrics.csv"))
+        if len(rows) != 1:
+            fail(f"parallel cli {name}: {len(rows)} CSV rows")
+        return summary, rows[0], {n: c.launches for n, c in counters.items()}
+
+    env_keys = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+    saved = {k: os.environ.get(k) for k in env_keys}
+    torch.backends.cudnn.deterministic = True
+    try:
+        with deterministic_upsampling():
+            plain, row_p, _ = run("plain")
+            os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                              RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+            group, row_g, launches = run("group", ["--distributed"])
+            backend = dist.get_backend()
+        torch.backends.cudnn.deterministic = False
+        if backend != backend_for(dev):
+            fail(f"cli.train --distributed on {dev.type}: backend {backend}")
+        steps = sum(e["steps"] for e in group["epochs"])
+        items = sum(e["valid_items"] for e in group["epochs"])
+        want = {n: steps * CLI_PER_TRAIN_STEP[n] + items * CLI_PER_VALID_ITEM[n]
+                for n in counters}
+        if launches != want:
+            fail(f"cli.train --distributed: {steps} steps, {items} validation items "
+                 f"launched {launches}, expected {want}")
+        if row_g != row_p:
+            fail("cli.train --distributed CSV row differs from the plain run's: "
+                 f"{ {k: (row_g[k], row_p[k]) for k in row_p if row_g[k] != row_p[k]} }")
+        per_step = {k: v["epochs"][0]["spans"]["train_step"] / v["epochs"][0]["steps"]
+                    for k, v in (("plain", plain), ("group", group))}
+
+        # the step at the CLI defaults (bf16 G and D), with and without the
+        # group's gradient all-reduce, alternating: plain, group, group, plain
+        args = train_main.base_parser("").parse_args(common)
+        crop = tuple(args.crop_size)
+        model = find_model_using_name("XLSTM_HVED", device=dev, seed=0,
+                                      compute_dtype=args.compute_dtype)
+        disc = Discriminator(f_maps=args.disc_fmaps, kernel=args.disc_kernel,
+                             dtype=compute_dtype(args.disc_dtype))
+        x, mask = synthetic_batch(torch.Generator(device=dev).manual_seed(PARALLEL_SEED),
+                                  dev, crop)
+        cfg = TrainConfig(crop_size=crop)
+        state = create_train_state(model, disc, cfg, seed=0, sample=x)
+        step = make_train_step(model, disc, cfg)
+        mesh = make_mesh(device=dev)
+        grad_bytes = 4 * sum(p.numel() for m in (model, disc) for p in m.parameters())
+        state, _ = step(state, x, mask)   # warm-up
+        times = {"plain": [], "group": []}
+        for arm in ("plain", "group", "group", "plain"):
+            for _ in range(PARALLEL_STEPS_PER_ARM):
+                _sync(dev)
+                t = time.perf_counter()
+                with mesh if arm == "group" else contextlib.nullcontext():
+                    state, _ = step(state, x, mask)
+                _sync(dev)
+                times[arm].append(1e3 * (time.perf_counter() - t))
+        del state, step, model, disc, x, mask
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    line = (f"  cli.train --distributed (world 1, backend {backend}): CSV row bit for bit "
+            f"the plain run's; {steps} steps, {items} validation items, launches {launches}; "
+            f"per step {per_step['plain']:.3f} / {per_step['group']:.3f} s (plain, group; "
+            f"the first run's includes the warm-up) | step at "
+            f"{'x'.join(map(str, crop))} {args.compute_dtype}: {ms['plain']:.1f} ms without "
+            f"the group, {ms['group']:.1f} ms with it ({ms['group'] / ms['plain']:.3f}x; "
+            f"{['%.1f' % t for t in times['plain']]} / {['%.1f' % t for t in times['group']]}), "
+            f"{grad_bytes} gradient bytes all-reduced per step")
+    print(line, flush=True)
+    return dict(backend=backend, launches=launches, step_ms=ms)
+
+
+def parallel_ranks(dev, root):
+    """Phase 13, 2: the fp32 G+D step at PARALLEL_SETTINGS' crop on 2 ranks
+    at batch 1 (child processes, gloo, on this card) against this process at
+    batch 2 on the same weights and input, cuDNN deterministic: G and D
+    gradients to phase 6's rule, the losses and the BatchNorm running
+    statistics to their bounds, the ranks equal to each other, 2/2/2
+    launches per rank; the sharded sweep against the hoisted one (phase 4's
+    bounds). Returns the numbers and a summary."""
+    import gc
+
+    import torch
+    from xlstm_hved_torch.engine.train import make_train_step
+
+    settings = dict(PARALLEL_SETTINGS, device=str(dev))
+    counters = mlstm_counters()
+    torch.backends.cudnn.deterministic = True
+    try:
+        with deterministic_upsampling():
+            x, mask = parallel_inputs(dev, tuple(settings["crop"]))
+            cfg, state = parallel_state(dev, x, settings["disc"])
+            step = make_train_step(state.model, state.disc, cfg)
+            for c in counters.values():
+                c.launches = 0
+            state, metrics = step(state, x, mask)
+            _sync(dev)
+            ref_launches = {n: c.launches for n, c in counters.items()}
+            ref = step_record(state, metrics)
+            # the one-rank step at batch 1, for the time
+            times = []
+            for i in range(4):
+                _sync(dev)
+                t = time.perf_counter()
+                state, _ = step(state, x[:1], mask[:1])
+                _sync(dev)
+                if i:
+                    times.append(1e3 * (time.perf_counter() - t))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del state, step, x, mask, metrics
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()   # the children need the memory
+
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                               "--parallel-rank", str(r), str(port), root,
+                               json.dumps(settings)], cwd=HERE)
+             for r in range(PARALLEL_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=PARALLEL_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    children_s = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        fail(f"phase 13 ranks exited {[p.returncode for p in procs]}")
+    ranks = [torch.load(os.path.join(root, f"parallel_rank{r}.pt"), weights_only=False)
+             for r in range(PARALLEL_RANKS)]
+
+    per_step = {n: CLI_PER_TRAIN_STEP[n] for n in counters}
+    if ref_launches != per_step:
+        fail(f"one-process step launched {ref_launches}, expected {per_step}")
+    r0, r1 = ranks[0]["record"], ranks[1]["record"]
+    for r in ranks:
+        if r["backend"] != "gloo" or r["launches"] != per_step:
+            fail(f"rank {r['rank']}: backend {r['backend']}, launches {r['launches']}, "
+                 f"expected {per_step}")
+    if r0["metrics"] != r1["metrics"]:
+        fail(f"the ranks' metrics differ: {r0['metrics']} / {r1['metrics']}")
+    worst = {}
+    for part in ("g", "d"):
+        floor = GRAD_FLOOR * max(absmax(t) for t in ref[part].values())
+        shares = []
+        for name, want in ref[part].items():
+            got = r0[part][name]
+            if not torch.equal(got, r1[part][name]):
+                fail(f"{part} gradient {name}: the ranks differ")
+            err = absmax(got - want)
+            shares.append((err / (GRAD_SCALED * absmax(want) + floor), name, err))
+        share, name, err = max(shares)
+        if share > 1.0:
+            fail(f"two ranks vs one process, {part.upper()} gradient {name}: max|d| "
+                 f"{err:.3e}, {share:.3f} of phase 6's bound")
+        worst[part] = (share, name, err)
+    loss_d = {k: abs(r0["metrics"][k] - ref["metrics"][k]) for k in ("loss", "loss_d")}
+    if max(loss_d.values()) > PARALLEL_LOSS_ATOL:
+        fail(f"two ranks vs one process: loss |d| {loss_d} (bound {PARALLEL_LOSS_ATOL})")
+    stats_d = max(absmax(r0["stats"][n] - w) for n, w in ref["stats"].items())
+    if stats_d > PARALLEL_STATS_ATOL or any(
+            not torch.equal(r0["stats"][n], r1["stats"][n]) for n in ref["stats"]):
+        fail(f"two ranks vs one process: BatchNorm statistics max|d| {stats_d:.3e}, or the "
+             "ranks differ")
+    sweep = ranks[0]
+    n_sub = 15
+    want_shape = ((n_sub, 1, 3, *settings["sweep_shape"]), (n_sub, 1, 4, *settings["sweep_shape"]))
+    if any(r["sweep_shape"] != want_shape for r in ranks) or not sweep["finite"]:
+        fail(f"sharded sweep: shapes {[r['sweep_shape'] for r in ranks]}, finite "
+             f"{sweep['finite']}")
+    if sweep["seg_d"] > SEG_ATOL or sweep["rec_d"] > RECON_ATOL:
+        fail(f"sharded sweep vs hoisted: seg {sweep['seg_d']:.3e}, recon "
+             f"{sweep['rec_d']:.3e} (bounds {SEG_ATOL}, {RECON_ATOL})")
+    one_ms = statistics.median(times)
+    two_ms = statistics.median([t for r in ranks for t in r["step_ms"]])
+    crop = "x".join(map(str, settings["crop"]))
+    line = (f"  two ranks (gloo, one card) at {crop} fp32, batch 1 each, vs one process at "
+            f"batch 2: G gradient worst {worst['g'][0]:.3f} of phase 6's bound "
+            f"({worst['g'][1]}, max|d| {worst['g'][2]:.3e}), D {worst['d'][0]:.3f} "
+            f"({worst['d'][1]}, {worst['d'][2]:.3e}); loss |d| {loss_d['loss']:.3e}, "
+            f"loss_d |d| {loss_d['loss_d']:.3e}; BatchNorm statistics max|d| {stats_d:.3e}; "
+            f"launches per rank {ranks[0]['launches']} | step {two_ms:.1f} ms per rank "
+            f"(first {[round(r['first_ms'], 1) for r in ranks]}, then "
+            f"{[[round(t, 1) for t in r['step_ms']] for r in ranks]}) against one rank's "
+            f"{one_ms:.1f} ms at batch 1 ({two_ms / one_ms:.2f}x) | sharded sweep of a "
+            f"{'x'.join(map(str, settings['sweep_shape']))} volume: seg max|d| "
+            f"{sweep['seg_d']:.3e}, recon {sweep['rec_d']:.3e} against the hoisted sweep; "
+            f"{[round(r['sweep_s'], 2) for r in ranks]} s on the two ranks, hoisted "
+            f"{sweep['hoisted_s']:.2f} s; mlstm_fwd launches per rank "
+            f"{[r['sweep_launches'] for r in ranks]} | children {children_s:.1f} s")
+    print(line, flush=True)
+    return dict(per_step=ranks[0]["launches"], two_ms=two_ms, one_ms=one_ms)
+
+
+def check_parallel(dev, root, train_dir, valid_dir, cli_extra=()):
+    """Phase 13, data parallelism: `parallel_cli`, then `parallel_ranks`.
+    Returns the launches per step and a summary."""
+    cli = parallel_cli(dev, root, train_dir, valid_dir, cli_extra)
+    ranks = parallel_ranks(dev, root)
+    summary = (f"world-1 {cli['backend']} CSV row bit for bit, step "
+               f"{cli['step_ms']['group']:.1f} / {cli['step_ms']['plain']:.1f} ms with / "
+               f"without the group | two ranks {ranks['two_ms']:.1f} ms per step vs "
+               f"{ranks['one_ms']:.1f}, launches per rank {ranks['per_step']}")
+    return {"per_step": ranks["per_step"], "summary": summary}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "xlstm_hved_torch")):
         fail("xlstm_hved_torch/ is not beside chip_smoke.py; run it from a checkout")
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--parallel-rank"]:   # a child of phase 13
+        rank, port, root, settings = sys.argv[2:6]
+        parallel_rank(int(rank), int(port), root, json.loads(settings))
+        return
 
     # ---- 1. device
     t0 = time.perf_counter()
@@ -2513,20 +2930,29 @@ def main():
         zoo = check_zoo(dev, torch.Generator(device=dev).manual_seed(10), root, wait)
         done("zoo", t0, zoo)
 
-    # ---- 11. xlstm: the xLSTM model families, on its own generator
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    xl = check_xlstm(dev, torch.Generator(device=dev).manual_seed(11))
-    for name in KERNELS:
-        rows[name]["launches_xlstm"] = xl["launches"][name]
-    done("xlstm", t0, xl["summary"])
+        # ---- 11. xlstm: the xLSTM model families, on its own generator
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        xl = check_xlstm(dev, torch.Generator(device=dev).manual_seed(11))
+        for name in KERNELS:
+            rows[name]["launches_xlstm"] = xl["launches"][name]
+        done("xlstm", t0, xl["summary"])
 
-    # ---- 12. import: the upstream .pth import and the A9 blocks, on its own generator
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    imp = check_import(dev, torch.Generator(device=dev).manual_seed(12))
-    rows["mlstm_fwd"]["launches_import"] = imp["launches"]
-    done("import", t0, imp["summary"])
+        # ---- 12. import: the upstream .pth import and the A9 blocks, on its own generator
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        imp = check_import(dev, torch.Generator(device=dev).manual_seed(12))
+        rows["mlstm_fwd"]["launches_import"] = imp["launches"]
+        done("import", t0, imp["summary"])
+
+        # ---- 13. parallel: data parallelism, on phase 7's dataset
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        par = check_parallel(dev, root, os.path.join(root, "train"),
+                             os.path.join(root, "valid"))
+        for name in KERNELS:
+            rows[name]["launches_parallel_per_rank_step"] = par["per_step"][name]
+        done("parallel", t0, par["summary"])
 
     for name, row in rows.items():
         row["max_abs_err"] = worst[name]

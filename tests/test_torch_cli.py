@@ -137,9 +137,23 @@ def test_parser_matches_jax_but_for_the_port_defaults():
 
 @pytest.mark.parametrize("extra", [["--distributed"], ["--num_data_devices", "2"]])
 @pytest.mark.parametrize("main", [train.main, pretrain.main], ids=["train", "pretrain"])
-def test_unported_options_raise(dataset, tmp_path, main, extra):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(_argv(dataset, str(tmp_path)) + extra)
+def test_unported_options_raise(dataset, tmp_path, monkeypatch, main, extra):
+    """The data-parallel options outside a group of their size raise before
+    anything is written: --num_data_devices 2 in one process (one device per
+    process; the error names torchrun), and train's --distributed with no
+    rendezvous (torchrun's environment unset, no coordinator address): no
+    quiet fall-back to one process. The pretrain CLI joins no group, as
+    JAX's does not, and runs --distributed as one process."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    argv = _argv(dataset, str(tmp_path)) + extra
+    if extra == ["--distributed"] and main is pretrain.main:
+        assert main(argv)["step"] == 2
+        return
+    error, match = ((ValueError, "torchrun") if "--num_data_devices" in extra
+                    else (ValueError, "env://"))
+    with pytest.raises(error, match=match):
+        main(argv)
     assert not os.listdir(tmp_path)
 
 

@@ -117,10 +117,17 @@ def test_eval_parser_adds_the_jax_flags():
     assert {k: v for k, v in got.items() if k not in TEST_FLAGS} == base
 
 
-@pytest.mark.parametrize("extra", [["--distributed"]])
+@pytest.mark.parametrize("extra", [["--distributed"], ["--num_data_devices", "2"]])
 def test_eval_cli_unported_options_raise(valid_dir, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        test_cli.main(ARGS + ["--valid_dir", valid_dir, "--out_dir", str(tmp_path)] + extra)
+    """The evaluation CLI joins no process group, as JAX's does not:
+    --distributed runs it as one process; a --num_data_devices other than
+    its one process raises, naming torchrun."""
+    argv = ARGS + ["--valid_dir", valid_dir, "--out_dir", str(tmp_path)] + extra
+    if extra == ["--distributed"]:
+        assert test_cli.main(argv)["dice"].shape == (15, 3)
+        return
+    with pytest.raises(ValueError, match="torchrun"):
+        test_cli.main(argv)
 
 
 @pytest.mark.parametrize("extra,dtype", [(["--compute_dtype", "bfloat16"], "bfloat16"),

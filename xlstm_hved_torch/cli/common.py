@@ -3,10 +3,12 @@ argument surface of the entry points and the host-to-device batch assembly.
 
 The parser keeps every flag and default of the JAX `base_parser` (bf16
 compute for G and D included), and adds `--device` (default `cuda`; the CPU
-only when asked for). `check_args` refuses what the port does not run yet:
-`--distributed` and more than one data device. There is no compile cache
-to enable (the JAX CLIs turn on XLA's): the CUDA kernels' build cache is
-`xlstm_hved_torch/_build/`.
+only when asked for). `maybe_init_distributed` joins the process group of a
+`--distributed` run (NCCL on the card, gloo on the CPU), as JAX's joins
+jax.distributed. One process drives one device, so `--num_data_devices`
+is the number of processes: 0 or the world size (`check_args`). There is no
+compile cache to enable (the JAX CLIs turn on XLA's): the CUDA kernels'
+build cache is `xlstm_hved_torch/_build/`.
 """
 from __future__ import annotations
 
@@ -15,16 +17,20 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from xlstm_hved_torch.config import TrainConfig
 from xlstm_hved_torch.models import resolve_device
+from xlstm_hved_torch.parallel.mesh import (backend_for, initialize_distributed, rank_device,
+                                            sample_rows)
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the run raises when a CUDA device is "
-                        "asked for and none is present")
+                        "asked for and none is present. Under --distributed "
+                        "'cuda' is cuda:$LOCAL_RANK")
     p.add_argument("--num_epochs", type=int, default=3000)
     p.add_argument("--n_class", type=int, default=3)
     p.add_argument("--learning_rate", type=float, default=1e-4)
@@ -48,7 +54,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="G's compute dtype (parameters, gradients and Adam state "
                         "stay float32; the ViL and the mLSTM kernels run float32)")
     p.add_argument("--num_data_devices", type=int, default=0,
-                   help="data-parallel size (0 = all); the port runs on one device")
+                   help="data-parallel size: 0 (all) or the number of processes, "
+                        "one device each (start more with torchrun)")
     p.add_argument("--profile_dir", type=str, default="",
                    help="torch.profiler trace output dir (empty = off)")
     p.add_argument("--disc_kernel", type=int, default=4,
@@ -61,8 +68,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="recompute the encoder, DRB and decoder stages in the "
                         "backward (less peak memory, more time)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process data parallelism (not ported)")
-    p.add_argument("--coordinator_address", type=str, default="")
+                   help="multi-process data parallelism (cli.train): join the "
+                        "process group, NCCL for a CUDA --device, gloo for the CPU")
+    p.add_argument("--coordinator_address", type=str, default="",
+                   help="host:port of rank 0 (empty: torchrun's env://)")
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--dataset", type=str, default="brats",
@@ -90,12 +99,32 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def maybe_init_distributed(args) -> Tuple[int, int]:
+    """(rank, world size); joins the process group when --distributed is
+    set (`parallel.mesh.initialize_distributed`, whose failure raises)."""
+    if getattr(args, "distributed", False):
+        initialize_distributed(args.coordinator_address or None,
+                               args.num_processes or None,
+                               args.process_id if args.process_id >= 0 else None,
+                               backend=backend_for(args.device))
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def check_args(args) -> torch.device:
-    """Refuse the options the port does not run yet; return the device,
-    which raises when it is a CUDA device and none is present."""
-    if args.distributed or args.num_data_devices > 1:
-        raise NotImplementedError("data parallelism (--distributed, "
-                                  "--num_data_devices > 1) is not ported yet")
+    """Check --num_data_devices against the processes (one device each:
+    0 or the world size) and return this process's device, which raises
+    when it is a CUDA device and none is present; in a process group a bare
+    'cuda' is cuda:$LOCAL_RANK, and an index the host lacks raises."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.num_data_devices not in (0, world):
+        raise ValueError(
+            f"--num_data_devices {args.num_data_devices}: one process drives one device "
+            f"here and this run has {world}; start {args.num_data_devices} processes with "
+            f"torchrun --nproc_per_node {args.num_data_devices} ... --distributed")
+    if dist.is_initialized():
+        return rank_device(args.device)
     return resolve_device(args.device)
 
 
@@ -177,10 +206,12 @@ def assemble_train_batch(items: List[Tuple], crop, generator: torch.Generator,
     NCDHW on `device`. Augmentation runs on the host (`host_augment`), so
     only the crop crosses to the device. Each item's augment seed is drawn
     from `generator`, a CPU torch.Generator (the JAX function draws them
-    from a PRNG key: the same semantics, another stream)."""
+    from a PRNG key: the same semantics, another stream). Under a data mesh
+    the seeds are drawn for the global batch and each rank keeps its own."""
     from xlstm_hved_torch.data.transforms import host_augment
 
-    seeds = torch.randint(0, 2 ** 31 - 1, (len(items),), generator=generator).tolist()
+    seeds = sample_rows(lambda shape: torch.randint(0, 2 ** 31 - 1, shape, generator=generator),
+                        (len(items),)).tolist()
     xs, keeps, masks = [], [], []
     for seed, (img, labels, keep, _bg) in zip(seeds, items):
         x, m = host_augment(np.random.RandomState(seed), img, labels, tuple(crop))

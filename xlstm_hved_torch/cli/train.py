@@ -7,8 +7,19 @@ Adversarial seg+recon training with modality-subset dropout, validation
 (all-modality and instance-missing passes) on the first epochs and every
 `--validate_every`, a CSV metric log, latest / best_vloss / best_dice /
 backup checkpoints, pretrained-weight surgery and resume from latest. One
-process, one device (`--device`, the CUDA card by default); a threaded
-prefetcher decodes the volumes while the device steps.
+process drives one device (`--device`, the CUDA card by default); a
+threaded prefetcher decodes the volumes while the device steps.
+
+With `--distributed` it is one rank of a data-parallel run (start the
+ranks with torchrun, or give each --coordinator_address, --num_processes
+and --process_id): every rank restores the checkpoint (or does the
+surgery), rank 0's state is broadcast, each rank loads its strided shard of
+the data, and the steps run inside the mesh, so that N ranks at
+--train_batch b step as one process at batch N * b. The ranks take each
+step together (`in_lockstep`: a rank whose shard is shorter ends the loop
+for all), the epoch's metrics are averaged over the ranks so every rank
+tracks the same bests, and only rank 0 prints and writes the checkpoints
+and the CSV.
 
 `main(argv)` returns a summary for the caller: per epoch its seconds, step
 and validation counts and where the time went (`spans`: the loop's waits on
@@ -23,7 +34,8 @@ import torch
 
 from xlstm_hved_torch.cli.common import (assemble_eval_batch, assemble_train_batch,
                                          base_parser, check_args, epoch_line,
-                                         make_datasets, print_args, train_cfg_from_args)
+                                         make_datasets, maybe_init_distributed, print_args,
+                                         train_cfg_from_args)
 from xlstm_hved_torch.data.brats import prefetch_loader
 from xlstm_hved_torch.data.sdm import compute_sdm
 from xlstm_hved_torch.engine.checkpoint import CheckpointManager, surgical_restore
@@ -31,6 +43,8 @@ from xlstm_hved_torch.engine.train import (create_train_state, make_eval_step,
                                            make_train_step)
 from xlstm_hved_torch.models import Discriminator, find_model_using_name
 from xlstm_hved_torch.nn.blocks import compute_dtype
+from xlstm_hved_torch.parallel.mesh import (allreduce_averages, in_lockstep, make_mesh,
+                                            replicate)
 from xlstm_hved_torch.utils.logging import (CSVLogger, RunningAverage, profiler_trace,
                                             timed_iter)
 
@@ -54,11 +68,15 @@ def read_metrics(metrics, keys):
 
 def main(argv=None):
     args = base_parser("Train a model (XLSTM-HVED, PyTorch port)").parse_args(argv)
+    rank, world = maybe_init_distributed(args)
     device = check_args(args)
-    print_args(args)
+    is_main = rank == 0
+    if is_main:
+        print_args(args)
 
     trainset, validset = make_datasets(args)
-    steps_per_epoch = max(len(trainset) // args.train_batch, 1)
+    # the steps each rank takes: one process at the global batch takes as many
+    steps_per_epoch = max(len(trainset) // (args.train_batch * world), 1)
     cfg = train_cfg_from_args(args, steps_per_epoch)
 
     model = find_model_using_name(args.model_name, device=device, seed=args.seed,
@@ -77,21 +95,24 @@ def main(argv=None):
         # the pretrain net's tree differs from this one (a recon decoder per
         # modality, 1-channel heads), so load by name and shape
         donor, _meta = CheckpointManager(args.pretrain_weights).restore_raw("best_vloss")
-        loaded, skipped = surgical_restore(model, donor["model"], verbose=True)
+        loaded, skipped = surgical_restore(model, donor["model"], verbose=is_main)
         summary["surgery"] = (len(loaded), len(skipped))
         del donor
     state, epoch_start, best_vloss, best_dice = ckpt.load_or_initialize(state)
+    mesh = make_mesh(device=device)
+    replicate(mesh, state)
+    data_shard = (rank, world) if world > 1 else None
 
     train_step = make_train_step(model, disc, cfg, steps_per_epoch)
     eval_step = make_eval_step(model)
-    csvlog = CSVLogger(f"{args.out_dir}/{args.model_name}/loss_and_metrics.csv",
-                       CSV_FIELDS)
+    csvlog = (CSVLogger(f"{args.out_dir}/{args.model_name}/loss_and_metrics.csv", CSV_FIELDS)
+              if is_main else None)
     # bounded process chunk: stop (checkpointed) after --stop_after_epoch
     # while the LR schedule keeps the full --num_epochs horizon
     end_epoch = (min(args.num_epochs, args.stop_after_epoch)
                  if args.stop_after_epoch else args.num_epochs)
 
-    with profiler_trace(args.profile_dir or None):
+    with mesh, profiler_trace((args.profile_dir if is_main else "") or None):
         for epoch in range(epoch_start, end_epoch + 1):
             t0 = time.perf_counter()
             spans = dict.fromkeys(("train_wait", "train_batch", "train_step", "valid_wait",
@@ -99,8 +120,8 @@ def main(argv=None):
             tr = {k: RunningAverage() for k in TRAIN_KEYS}
             steps = 0
             loader = prefetch_loader(trainset, args.train_batch, shuffle=True,
-                                     seed=args.seed + epoch)
-            for items in timed_iter(loader, spans, "train_wait"):
+                                     seed=args.seed + epoch, shard=data_shard)
+            for items in timed_iter(in_lockstep(loader, mesh), spans, "train_wait"):
                 t = time.perf_counter()
                 x, _xm, mask = assemble_train_batch(items, cfg.crop_size, state.rng, device)
                 sdm = None
@@ -120,8 +141,9 @@ def main(argv=None):
             did_validate = epoch < 5 or (epoch + 1) % args.validate_every == 0
             items_seen = 0
             if did_validate:
-                loader = prefetch_loader(validset, args.valid_batch, shuffle=False, seed=0)
-                for items in timed_iter(loader, spans, "valid_wait"):
+                loader = prefetch_loader(validset, args.valid_batch, shuffle=False, seed=0,
+                                         shard=data_shard)
+                for items in timed_iter(in_lockstep(loader, mesh), spans, "valid_wait"):
                     t = time.perf_counter()
                     x, xm, mask = assemble_eval_batch(items, cfg.crop_size, device)
                     spans["valid_batch"] += time.perf_counter() - t
@@ -132,36 +154,44 @@ def main(argv=None):
                     items_seen += len(items)
                     del x, xm, mask
 
-            vloss = va["vloss"].avg if did_validate else None
-            vdice = va["dice"].avg if did_validate else None
+            # every rank takes the same (global) numbers, so the bests agree
+            trg = allreduce_averages(tr)
+            vag = allreduce_averages(va) if did_validate else {}
+            vloss = vag["vloss"] if did_validate else None
+            vdice = vag["dice"] if did_validate else None
+            epoch_summary = dict(epoch=epoch, steps=steps, valid_items=items_seen, spans=spans)
+            summary["epochs"].append(epoch_summary)
+            if not is_main:  # track the bests without rank 0's writes
+                if did_validate:
+                    best_vloss, best_dice = min(best_vloss, vloss), max(best_dice, vdice)
+                epoch_summary["seconds"] = time.perf_counter() - t0
+                continue
             best_vloss, best_dice = ckpt.save_epoch(state, epoch, vloss, vdice,
                                                     best_vloss, best_dice)
             row = {
-                "Epoch": epoch, "Train_Loss": tr["loss"].avg,
-                "Train_dice": tr["train_dice"].avg, "Train_wt_dice": tr["wt_dice"].avg,
-                "Train_tc_dice": tr["tc_dice"].avg, "Train_ec_dice": tr["ec_dice"].avg,
-                "Train_recon": tr["recon"].avg, "Train_kld": tr["kld"].avg,
-                "Train_g_gan": tr["g_gan"].avg, "Train_loss_d": tr["loss_d"].avg,
+                "Epoch": epoch, "Train_Loss": trg["loss"],
+                "Train_dice": trg["train_dice"], "Train_wt_dice": trg["wt_dice"],
+                "Train_tc_dice": trg["tc_dice"], "Train_ec_dice": trg["ec_dice"],
+                "Train_recon": trg["recon"], "Train_kld": trg["kld"],
+                "Train_g_gan": trg["g_gan"], "Train_loss_d": trg["loss_d"],
             }
             if did_validate:
                 row.update({
                     "Valid_Loss": vloss, "Valid_dice": vdice,
-                    "Valid_wt_dice": va["wt_dice"].avg, "Valid_tc_dice": va["tc_dice"].avg,
-                    "Valid_ec_dice": va["ec_dice"].avg,
-                    "Valid_wt_dice_m": va["wt_dice_m"].avg,
-                    "Valid_tc_dice_m": va["tc_dice_m"].avg,
-                    "Valid_ec_dice_m": va["ec_dice_m"].avg,
-                    "Valid_PSNR_f": va["psnr_f"].avg, "Valid_PSNR_m": va["psnr_m"].avg,
+                    "Valid_wt_dice": vag["wt_dice"], "Valid_tc_dice": vag["tc_dice"],
+                    "Valid_ec_dice": vag["ec_dice"],
+                    "Valid_wt_dice_m": vag["wt_dice_m"],
+                    "Valid_tc_dice_m": vag["tc_dice_m"],
+                    "Valid_ec_dice_m": vag["ec_dice_m"],
+                    "Valid_PSNR_f": vag["psnr_f"], "Valid_PSNR_m": vag["psnr_m"],
                 })
             csvlog.append(row)
-            seconds = time.perf_counter() - t0
-            vtxt = (f"vloss {vloss:.4f} vdice {vdice:.4f} PSNR_m {va['psnr_m'].avg:.2f}"
+            seconds = epoch_summary["seconds"] = time.perf_counter() - t0
+            vtxt = (f"vloss {vloss:.4f} vdice {vdice:.4f} PSNR_m {vag['psnr_m']:.2f}"
                     if did_validate else "no-val")
             print(epoch_line(epoch, args.num_epochs, seconds, spans,
-                             f"loss {tr['loss'].avg:.4f} dice {tr['train_dice'].avg:.4f} "
+                             f"loss {trg['loss']:.4f} dice {trg['train_dice']:.4f} "
                              f"{vtxt}"), flush=True)
-            summary["epochs"].append(dict(epoch=epoch, seconds=seconds, steps=steps,
-                                          valid_items=items_seen, spans=spans))
     summary["step"] = state.step
     return summary
 

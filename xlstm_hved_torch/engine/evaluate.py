@@ -13,9 +13,9 @@ SUBSET_MASKS.
 - `make_hoisted_subset_sweep`: per window, the model's subset-invariant
   prefix once on the full input, then 15 suffixes (`models/hved.py`); it
   equals the plain sweep.
-The windows accumulate in fp32 whatever the model's compute dtype. The JAX
-engine's sweep sharded over a device mesh waits for the port's data
-parallelism.
+- `make_sharded_subset_sweep`: the hoisted sweep with the subsets split
+  over the ranks of a mesh's data axis, gathered back in order.
+The windows accumulate in fp32 whatever the model's compute dtype.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from xlstm_hved_torch.parallel.mesh import all_gather
 from xlstm_hved_torch.utils.subsets import SUBSET_MASKS
 
 
@@ -120,29 +121,20 @@ def make_subset_sweep(apply_fn: Callable, patch: Sequence[int],
     return sweep
 
 
-def make_hoisted_subset_sweep(model, patch: Sequence[int],
-                              stride: Optional[Sequence[int]] = None,
-                              out_channels: int = 3, recon_channels: int = 0):
-    """The 15-subset sweep with the subset-invariant forward prefix hoisted
-    out of the subset loop: per window, one `mode="prefix"` pass on the full
-    window, then one `mode="suffix"` pass per subset on the masked window,
-    accumulated as `make_sliding_window` accumulates. `model` is an
-    HVEDFusionNet; deterministic latents, no gradient.
-
-    Returns sweep(model, x) -> seg (15, B, out_channels, ...) and, when
-    recon_channels > 0, recon (15, B, recon_channels, ...)."""
-    del model  # the JAX engine's signature; the network is sweep's argument
+def _hoisted_sweep_body(patch: Sequence[int], stride: Optional[Sequence[int]],
+                        out_channels: int, recon_channels: int):
+    """body(net, x, masks) -> seg (S, B, out_channels, ...) and, with recon
+    channels, recon: the hoisted sweep over the (S, 4) keep-masks `masks`."""
     patch = tuple(patch)
     stride = tuple(stride) if stride is not None else patch
     recon = recon_channels > 0
-    keeps = torch.tensor(SUBSET_MASKS)
 
     @torch.no_grad()
-    def sweep(net, x):
-        n = len(SUBSET_MASKS)
+    def body(net, x, masks):
+        n = masks.shape[0]
         B, M = x.shape[:2]
         vol = tuple(x.shape[2:])
-        masks = keeps.to(x.device)
+        masks = masks.to(x.device)
         seg_sum = x.new_zeros((n, B, out_channels, *vol), dtype=torch.float32)
         rec_sum = (x.new_zeros((n, B, recon_channels, *vol), dtype=torch.float32)
                    if recon else None)
@@ -164,6 +156,58 @@ def make_hoisted_subset_sweep(model, patch: Sequence[int],
         if not recon:
             return seg_sum / count
         return seg_sum / count, rec_sum / count
+
+    return body
+
+
+def make_hoisted_subset_sweep(model, patch: Sequence[int],
+                              stride: Optional[Sequence[int]] = None,
+                              out_channels: int = 3, recon_channels: int = 0):
+    """The 15-subset sweep with the subset-invariant forward prefix hoisted
+    out of the subset loop: per window, one `mode="prefix"` pass on the full
+    window, then one `mode="suffix"` pass per subset on the masked window,
+    accumulated as `make_sliding_window` accumulates. `model` is an
+    HVEDFusionNet; deterministic latents, no gradient.
+
+    Returns sweep(model, x) -> seg (15, B, out_channels, ...) and, when
+    recon_channels > 0, recon (15, B, recon_channels, ...)."""
+    del model  # the JAX engine's signature; the network is sweep's argument
+    body = _hoisted_sweep_body(patch, stride, out_channels, recon_channels)
+    keeps = torch.tensor(SUBSET_MASKS)
+    return lambda net, x: body(net, x, keeps)
+
+
+def make_sharded_subset_sweep(model, mesh, patch: Sequence[int],
+                              stride: Optional[Sequence[int]] = None,
+                              out_channels: int = 3, recon_channels: int = 0):
+    """The hoisted 15-subset sweep with the subsets split over the mesh's
+    data axis: the subset table is padded to a multiple of the axis's size
+    with repeats of the full subset, each rank runs the hoisted body on its
+    block of keep-masks (every rank computes the window's prefix), and the
+    blocks are gathered on the subset axis in rank order, the padding
+    dropped. Every rank returns the whole result, equal to
+    `make_hoisted_subset_sweep`'s."""
+    del model
+    n_subsets = len(SUBSET_MASKS)
+    n_pad = (-n_subsets) % mesh.data
+    table = torch.from_numpy(np.concatenate(
+        [SUBSET_MASKS, np.repeat(SUBSET_MASKS[-1:], n_pad, axis=0)]))
+    per_rank = len(table) // mesh.data
+    mine = table[mesh.data_rank * per_rank:(mesh.data_rank + 1) * per_rank]
+    body = _hoisted_sweep_body(patch, stride, out_channels, recon_channels)
+    recon = recon_channels > 0
+
+    def gather(t):
+        if mesh.data == 1:
+            return t
+        return all_gather(t, mesh.data_group).flatten(0, 1)[:n_subsets]
+
+    @torch.no_grad()
+    def sweep(net, x):
+        out = body(net, x, mine)
+        if recon:
+            return gather(out[0]), gather(out[1])
+        return gather(out)
 
     return sweep
 

@@ -18,6 +18,17 @@ One step, in the JAX step's order:
 5. the D step on the detached outputs, with D as it was before the step;
 6. the metrics.
 
+Data parallelism: inside `with mesh:` (`parallel/mesh.py`) N ranks at a
+per-rank batch b compute what one process computes at batch N * b, as the
+JAX steps sharded over a mesh do. The subset draw is the same on every rank
+(the same seed, the same draws per step); the latent noise is drawn at the
+global batch shape and each rank keeps its rows; BatchNorm and the dice
+terms reduce over the global batch; after each backward the G and D
+gradients are averaged over the ranks (an explicit all-reduce: the
+gradients are taken with torch.autograd.grad, which DistributedDataParallel's
+hooks do not see), and the metrics are averaged, so every rank reports the
+global ones. With no mesh, or one rank, the step is the one-process code.
+
 The pretrain step (`make_pretrain_step`) trains the recon decoders alone:
 seg branch off, BatchNorm on its running statistics, MSE recon + beta * KL,
 with the seg decoders frozen (`freeze_mask_for`).
@@ -43,6 +54,7 @@ from xlstm_hved_torch.losses import (boundary_loss, compute_kld_subsets, dice_lo
                                      gan_loss_lsgan, l2_loss)
 from xlstm_hved_torch.metrics import dice_coefficient, dice_region, psnr
 from xlstm_hved_torch.nn.init_schemes import INIT_SCHEMES, default_init
+from xlstm_hved_torch.parallel.mesh import average_gradients, average_metrics
 from xlstm_hved_torch.utils.subsets import sample_subset_index, subset_mask
 
 # channels of the discriminator input: 3 seg + 4 attention-weighted recon
@@ -170,8 +182,9 @@ def _grads(loss, params):
 def make_grad_fn(model: nn.Module, disc: nn.Module, cfg: TrainConfig) -> Callable:
     """(x, mask, keep, generator=None, deterministic=False) -> (loss,
     {name: gradient}): the raw generator gradients before the optimizer,
-    for comparisons. Like the JAX function it leaves the module state as
-    it was: the BatchNorm running statistics are restored afterwards."""
+    for comparisons, averaged over the ranks under a data mesh. Like the
+    JAX function it leaves the module state as it was: the BatchNorm
+    running statistics are restored afterwards."""
     loss_g = _g_objective(model, disc, cfg)
 
     def grad_fn(x, mask, keep, generator=None, deterministic=False):
@@ -180,7 +193,8 @@ def make_grad_fn(model: nn.Module, disc: nn.Module, cfg: TrainConfig) -> Callabl
         try:
             loss, _ = loss_g(x, mask, keep, generator, deterministic)
             names, params = zip(*model.named_parameters())
-            grads = _grads(loss, list(params))
+            grads = average_gradients(_grads(loss, list(params)))
+            loss = average_metrics({"loss": loss.detach()})["loss"]
         finally:
             disc.requires_grad_(True)
             with torch.no_grad():
@@ -226,7 +240,8 @@ def _masked_g_update(model: nn.Module, freeze_mask: Optional[Mapping[str, float]
     frozen = [p for p, m in zip(params, scale) if m == 0.0]
 
     def update(opt: torch.optim.Optimizer, loss, lr: float):
-        grads = [g if m == 1.0 else g * m for g, m in zip(_grads(loss, params), scale)]
+        grads = [g if m == 1.0 else g * m
+                 for g, m in zip(average_gradients(_grads(loss, params)), scale)]
         kept = [p.detach().clone() for p in frozen]
         _step(opt, params, grads, lr)
         with torch.no_grad():
@@ -266,7 +281,7 @@ def make_train_step(model: nn.Module, disc: nn.Module, cfg: TrainConfig,
         del loss
 
         loss_d = loss_d_fn(aux)
-        _step(state.opt_d, params_d, _grads(loss_d, params_d), lr)
+        _step(state.opt_d, params_d, average_gradients(_grads(loss_d, params_d)), lr)
 
         metrics = dict(aux["losses"])
         metrics["loss_d"] = loss_d.detach()
@@ -274,6 +289,7 @@ def make_train_step(model: nn.Module, disc: nn.Module, cfg: TrainConfig,
         metrics["wt_dice"] = dice_region(aux["f_seg"], mask, "WT")
         metrics["tc_dice"] = dice_region(aux["f_seg"], mask, "TC")
         metrics["ec_dice"] = dice_region(aux["f_seg"], mask, "EC")
+        metrics = average_metrics(metrics)
         metrics["subset_idx"] = subset_idx
         state.step += 1
         return state, metrics
@@ -296,7 +312,7 @@ def make_eval_step(model: nn.Module) -> Callable:
             out_m = model(x_missing, instance_missing=True, recon=True, deterministic=True)
         finally:
             model.train(was_training)
-        return dict(
+        return average_metrics(dict(
             vloss=dice_loss(out.seg, mask),
             dice=dice_coefficient(out.seg, mask),
             wt_dice=dice_region(out.seg, mask, "WT"),
@@ -307,7 +323,7 @@ def make_eval_step(model: nn.Module) -> Callable:
             ec_dice_m=dice_region(out_m.seg, mask, "EC"),
             psnr_f=psnr(out.recon, x),
             psnr_m=psnr(out_m.recon, x),
-        )
+        ))
 
     return eval_step
 
@@ -347,7 +363,7 @@ def make_pretrain_step(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int 
         loss, metrics = loss_fn(x, keep, state.latent_rng)
         update_g(state.opt_g, loss, schedule(state.step))
         state.step += 1
-        return state, metrics
+        return state, average_metrics(metrics)
 
     return pretrain_step
 

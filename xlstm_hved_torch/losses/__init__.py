@@ -5,6 +5,15 @@ scalars (fp64 in an fp64 run), with the JAX package's epsilons: they cast
 to fp32 where the JAX losses do, so bf16 outputs are read in fp32.
 Tensors are NCDHW (B, C, D, H, W):
 the channel axis is 1 where the JAX functions use the last axis.
+
+Under a data mesh of more than one rank (`parallel/mesh.py`) the losses
+that are ratios of sums over the batch (the dice losses, the weighted cross
+entropy) add the ranks' partial sums before the ratio, so each is the global
+batch's value on every rank, as the sharded JAX step computes it. The batch
+means (`l2_loss`, `gan_loss_lsgan`, `boundary_loss`, `bce_loss`, the KL
+means) stay local: every rank holds as many rows, so the mean over ranks of
+the local means, which the averaged gradients take, is the global mean
+already; reducing them here as well would count them twice.
 """
 from __future__ import annotations
 
@@ -12,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from xlstm_hved_torch.nn.blocks import at_least_fp32
+from xlstm_hved_torch.parallel.mesh import global_sums
 from xlstm_hved_torch.ops.poe import compute_kld_drop, compute_kld_subsets, kl_divergence
 
 __all__ = [
@@ -38,8 +48,7 @@ def per_channel_dice(pred: torch.Tensor, target: torch.Tensor,
                      epsilon: float = 1e-6) -> torch.Tensor:
     """Soft dice per channel with the V-Net (x^2 + y^2) denominator."""
     p, t = _flatten_per_channel(pred), _flatten_per_channel(target)
-    intersect = (p * t).sum(-1)
-    denom = (p * p).sum(-1) + (t * t).sum(-1)
+    intersect, denom = global_sums((p * t).sum(-1), (p * p).sum(-1) + (t * t).sum(-1))
     return 2.0 * intersect / torch.clamp(denom, min=epsilon)
 
 
@@ -54,11 +63,11 @@ def generalized_dice_loss(pred: torch.Tensor, target: torch.Tensor,
     p, t = _flatten_per_channel(pred), _flatten_per_channel(target)
     if p.shape[0] == 1:
         p, t = torch.cat([p, 1.0 - p]), torch.cat([t, 1.0 - t])
-    w = t.sum(-1)
+    w, intersect, denom = global_sums(t.sum(-1), (p * t).sum(-1), (p + t).sum(-1))
     w = 1.0 / torch.clamp(w * w, min=epsilon)
     w = torch.where(torch.isfinite(w), w, torch.zeros_like(w))
-    intersect = (p * t).sum(-1) * w
-    denom = torch.clamp((p + t).sum(-1) * w, min=epsilon)
+    intersect = intersect * w
+    denom = torch.clamp(denom * w, min=epsilon)
     return 1.0 - 2.0 * intersect.sum() / denom.sum()
 
 
@@ -86,12 +95,14 @@ def weighted_cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor) -> t
     """Cross entropy with inverse-frequency class weights, held constant,
     normalised as `F.cross_entropy(weight=w)` is: sum(w_y nll) / sum(w_y).
     `target` is one-hot over the channel axis."""
-    flat = _flatten_per_channel(logits)
-    weights = ((1.0 - flat).sum(-1) / flat.sum(-1)).detach()
+    flat = _flatten_per_channel(logits).detach()
+    neg, pos = global_sums((1.0 - flat).sum(-1), flat.sum(-1))
+    weights = neg / pos
     labels = target.argmax(dim=1)
     nll = -torch.gather(F.log_softmax(at_least_fp32(logits), dim=1), 1, labels[:, None])[:, 0]
     w = weights[labels]
-    return (w * nll).sum() / w.sum()
+    num, den = global_sums((w * nll).sum(), w.sum())
+    return num / den
 
 
 def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

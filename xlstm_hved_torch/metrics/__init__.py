@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from xlstm_hved_torch.parallel.mesh import data_mesh, global_sums
+
 HD95_SENTINEL = 373.13  # about the BraTS volume's diagonal
 
 # nested sigmoid channels; "ET" is the upstream name of the enhancing core
@@ -67,8 +69,14 @@ def dice_regions(pred: torch.Tensor, target: torch.Tensor,
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """10 log10(1 / MSE) on [0, 1] data."""
-    mse = torch.mean((pred.float() - target.float()).square())
+    """10 log10(1 / MSE) on [0, 1] data; under a data mesh of more than one
+    rank the global batch's MSE (the ranks' sums, then the ratio)."""
+    err = (pred.float() - target.float()).square()
+    if data_mesh() is None:
+        mse = torch.mean(err)
+    else:
+        total, count = global_sums(err.sum().reshape(1), err.new_full((1,), err.numel()))
+        mse = (total / count)[0]
     return 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))
 
 

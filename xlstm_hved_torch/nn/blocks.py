@@ -32,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xlstm_hved_torch.parallel.mesh import data_mesh, global_sums
+
 _ORDER_CHARS = set("cilregb")
 # the folded-stream blocks normalise per channel only
 _BLOCK_DIAG_ORDER_CHARS = set("cilre")
@@ -128,7 +130,10 @@ class BatchNorm3d(nn.BatchNorm3d):
     variance (torch's own F.batch_norm folds in the unbiased one, n/(n-1)
     larger, visible at small spatial sizes). Eval mode is torch's, on the
     running statistics. Both reduce and normalise in at least fp32, as
-    flax's BatchNorm does, and return the input's dtype.
+    flax's BatchNorm does, and return the input's dtype. Under a data mesh
+    of more than one rank the moments are the global batch's (the ranks'
+    sums added before the ratios, as the sharded JAX step takes them), so
+    the running statistics move alike on every rank.
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -142,8 +147,14 @@ class BatchNorm3d(nn.BatchNorm3d):
         # centred, so its gradient comes back as two half-precision terms
         # added in x's dtype: two casts here as well
         x32 = at_least_fp32(x)
-        mean = x32.mean(dim=dims)
-        var = torch.clamp(x32.square().mean(dim=dims) - mean.square(), min=0.0)
+        if data_mesh() is None:
+            mean = x32.mean(dim=dims)
+            var = torch.clamp(x32.square().mean(dim=dims) - mean.square(), min=0.0)
+        else:  # the global batch's moments: the ranks' sums, then the ratios
+            count = x32.new_full((1,), x.numel() // x.shape[1])
+            s1, s2, count = global_sums(x32.sum(dim=dims), x32.square().sum(dim=dims), count)
+            mean = s1 / count
+            var = torch.clamp(s2 / count - mean.square(), min=0.0)
         x32 = at_least_fp32(x)
         with torch.no_grad():
             keep = 1.0 - self.momentum

@@ -39,6 +39,7 @@ from torch import nn
 from xlstm_hved_torch.nn.blocks import DoubleConv, _cast, at_least_fp32
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise
 from xlstm_hved_torch.ops.mlstm_cuda import mlstm_forward
+from xlstm_hved_torch.parallel.mesh import sample_rows
 
 
 def _normal_(t: torch.Tensor, std: float) -> torch.Tensor:
@@ -209,7 +210,8 @@ class DropPath(nn.Module):
     dropped with probability `rate` (the kept ones scaled by 1 / (1 - rate)
     when `scale_by_keep`). The draw comes from an explicit `generator`; with
     none (or rate 0) it is x + residual, as the JAX module is without a
-    "droppath" RNG. Parameter-free; every preset has rate 0."""
+    "droppath" RNG. Under a data mesh the draw is the global batch's
+    (`sample_rows`). Parameter-free; every preset has rate 0."""
 
     def __init__(self, rate: float = 0.0, scale_by_keep: bool = True):
         super().__init__()
@@ -220,7 +222,8 @@ class DropPath(nn.Module):
             return x + residual
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=generator, device=generator.device) < keep
+        mask = sample_rows(lambda s: torch.rand(s, generator=generator, device=generator.device),
+                           shape) < keep
         if self.scale_by_keep:
             residual = residual / keep
         return x + residual * mask.to(device=x.device, dtype=residual.dtype)

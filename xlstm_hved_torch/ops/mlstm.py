@@ -123,10 +123,14 @@ def scan_chunks(q, k, v, a, s, cm, state, eps: float = MLSTM_EPS):
 
 
 def mlstm_chunkwise(q, k, v, igate, fgate, chunk_size: int = 128,
-                    eps: float = MLSTM_EPS):
+                    eps: float = MLSTM_EPS, init_state=None, return_state: bool = False):
     """Linear-in-S chunkwise mLSTM, equal to `mlstm_quadratic` up to fp
     association. q, k, v: (B, NH, S, DH); igate, fgate: (B, NH, S).
-    Returns (B, NH, S, DH) in fp32 (fp64 for fp64 inputs)."""
+    `init_state` is an optional boundary state (C, n, m) of shapes
+    (B, NH, DH, DH), (B, NH, DH), (B, NH), e.g. carried in from the preceding
+    sequence shard (`parallel/seq.py`); the zero state (m = -inf) otherwise.
+    Returns (B, NH, S, DH) in fp32 (fp64 for fp64 inputs), and with
+    `return_state` the final (C, n, m) as well."""
     B, NH, S, DH = q.shape
     f32 = torch.promote_types(q.dtype, torch.float32)
     qp, kp, vp, ip, fp, L = pad_to_chunks(q, k, v, igate, fgate, chunk_size)
@@ -134,8 +138,17 @@ def mlstm_chunkwise(q, k, v, igate, fgate, chunk_size: int = 128,
     BH = B * NH
     qf, kf, vf = (t.reshape(BH, Sp, DH).to(f32) for t in (qp, kp, vp))
     a, s, cm = chunk_gates(ip, fp, L)
-    state = (q.new_zeros((BH, DH, DH), dtype=f32),
-             q.new_zeros((BH, DH), dtype=f32),
-             q.new_full((BH,), float("-inf"), dtype=f32))
-    _, h = scan_chunks(qf, kf, vf, a, s, cm, state, eps)
-    return h.reshape(B, NH, Sp, DH)[:, :, :S]
+    if init_state is None:
+        state = (q.new_zeros((BH, DH, DH), dtype=f32),
+                 q.new_zeros((BH, DH), dtype=f32),
+                 q.new_full((BH,), float("-inf"), dtype=f32))
+    else:
+        c0, n0, m0 = init_state
+        state = (c0.reshape(BH, DH, DH).to(f32), n0.reshape(BH, DH).to(f32),
+                 m0.reshape(BH).to(f32))
+    final, h = scan_chunks(qf, kf, vf, a, s, cm, state, eps)
+    h = h.reshape(B, NH, Sp, DH)[:, :, :S]
+    if not return_state:
+        return h
+    c_f, n_f, m_f = final
+    return h, (c_f.reshape(B, NH, DH, DH), n_f.reshape(B, NH, DH), m_f.reshape(B, NH))

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from xlstm_hved_torch.parallel.mesh import sample_rows
+
 LOGVAR_CLIP = 50.0
 POE_EPS = 1e-8
 
@@ -66,13 +68,15 @@ def reparametrize(mu: torch.Tensor, logvar: torch.Tensor,
                   deterministic: bool = False,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """mu + eps * exp(logvar / 2) with eps ~ N(0, 1) drawn from `generator`;
-    the mean itself when `deterministic`."""
+    the mean itself when `deterministic`. Under a data mesh eps is drawn at
+    the global batch shape and this rank keeps its rows (`sample_rows`), so
+    N ranks draw what one process draws at the global batch."""
     if deterministic:
         return mu
     if generator is None:
         raise ValueError("reparametrize needs a torch.Generator when sampling")
-    eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                      device=mu.device)
+    eps = sample_rows(lambda shape: torch.randn(shape, generator=generator, dtype=mu.dtype,
+                                                device=mu.device), mu.shape)
     return mu + eps * torch.exp(0.5 * logvar)
 
 
@@ -81,7 +85,8 @@ def kl_divergence(mu1: torch.Tensor, logvar1: torch.Tensor,
                   logvar2: Optional[torch.Tensor] = None,
                   eps: float = 1e-8) -> torch.Tensor:
     """Mean over all elements of KL(N(mu1, var1) || N(mu2, var2)); the
-    standard normal when mu2 is None."""
+    standard normal when mu2 is None. A batch mean, so under a data mesh it
+    stays this rank's: the averaged gradients make it the global one."""
     if mu2 is None:
         return 0.5 * torch.mean(-1.0 - logvar1 + torch.exp(logvar1) + mu1.square())
     var1, var2 = torch.exp(logvar1), torch.exp(logvar2)
