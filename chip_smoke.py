@@ -12,15 +12,20 @@ plain twin):
              nvcc each, all started together;
              ptxas's registers, shared memory and spills for each CUDA kernel
  3. kernel   each kernel (mlstm_fwd, mlstm_fwd_states, mlstm_bwd; one call of
-             each is three CUDA launches, four and ten on the wide path)
-             against its plain PyTorch twin at the shapes the main paths
-             give it and on the edge cases (one chunk, padding, extreme
-             gates, the e^{-m} branch, DH 8, more blocks than one wave), at
-             the ViL decoder's DH 8, S 32768 and 49152 (256 and 384 chunks
-             in one scan), and at the xLSTM families' head widths on the
-             wide path (phase 11's shapes: DH 32 to 384, odd widths DH 15
-             and 45 zero-padded, one chunk with S < L), with its time beside
-             the twin's and its bound; mlstm_fwd's h bitwise equal to
+             each is three CUDA launches, seven for mlstm_bwd on the wide
+             path) against its plain PyTorch twin at the shapes the main
+             paths give it, with the true length S as the wrappers take it
+             (the cotangent zero past S, as mlstm_backward pads it), and on
+             the edge cases (one chunk, padding, extreme gates, the e^{-m}
+             branch, DH 8, more blocks than one wave), at the ViL decoder's
+             DH 8, S 32768 and 49152 (256 and 384 chunks in one scan), at
+             the xLSTM families' head widths on the wide path (phase 11's
+             shapes: DH 32 to 384, odd widths DH 15 and 45 zero-padded, one
+             chunk with S < L) and at the wide path's edges (a last chunk's
+             true rows ending inside a row tile, one chunk of 65 rows, DH
+             512, B*NH 1 at DH 384, the e^{-m} branch at DH 384), with the
+             wide plan's blocks per launch and its time beside the twin's
+             and its bound; mlstm_fwd's h bitwise equal to
              mlstm_fwd_states'; then the
              differentiable wrapper's h and five gradients against the plain
              chunkwise scan and its autograd at S 2000 and 6144 (the twins
@@ -422,7 +427,19 @@ KERNEL_CASES = (("S4096", 1, 4, 4096, 16, "realistic"),
                 ("S1000_DH45", 1, 4, 1000, 45, "realistic"),
                 # one chunk with S < L: the 3-D and 2-D UXlstmBot bottlenecks
                 ("S64_DH160_one_chunk", 2, 4, 64, 160, "realistic"),
-                ("S15_DH256_one_chunk", 2, 4, 15, 256, "realistic"))
+                ("S15_DH256_one_chunk", 2, 4, 15, 256, "realistic"),
+                # the wide path's edges: the last chunk's true rows end inside
+                # a row tile (72 and 1 rows), one chunk of 65 rows (a tile and
+                # one row), the widest head, a grid below one wave, and the
+                # e^{-m} branch at a ViT-B width
+                ("S200_DH64", 1, 4, 200, 64, "realistic"),
+                ("S129_DH64", 1, 4, 129, 64, "realistic"),
+                ("S200_DH160", 1, 4, 200, 160, "realistic"),
+                ("S129_DH160", 1, 4, 129, 160, "realistic"),
+                ("S65_DH96_one_chunk", 1, 4, 65, 96, "realistic"),
+                ("S200_DH512", 1, 2, 200, 512, "realistic"),
+                ("S196_DH384_BNH1", 1, 1, 196, 384, "realistic"),
+                ("S196_DH384_denominator", 1, 4, 196, 384, "denominator"))
 # the cases timed into the kernels line: the main paths' bottleneck shape,
 # and the ViL decoder's and the wide path's under their own keys
 TIMED_CASES = ("S4096", "S32768_DH8", "S49152_DH8", "S4096_DH128", "S512_DH160",
@@ -456,22 +473,30 @@ def check_kernels(dev):
         q, k, v, ig, fg = mlstm_inputs(gen, dev, B, NH, S, DH, kind)
         prepared = mc.prepare(q, k, v, ig, fg, 128)
         qf, kf, vf, a, s, cm = prepared
-        BH, _, DP = qf.shape    # DP: DH zero-padded to the kernels' width
+        BH, Sp, DP = qf.shape    # DP: DH zero-padded to the kernels' width
         L = a.shape[-1]
         g = torch.randn(qf.shape, generator=gen, device=dev)
-        g[..., DH:] = 0.0        # as mlstm_backward pads the cotangent
+        # as mlstm_backward pads the cotangent: zero past DH and past S
+        g[..., DH:] = 0.0
+        g.view(B * NH, Sp, DP)[:, S:] = 0.0
+        wide = DP > mc.NARROW_DH[-1]
+        if wide:  # the blocks of each launch of the plan the wrappers take
+            plan = mc.wide_plan(BH, Sp // L, L, DP)
+            print(f"  {label}: wide plan row tile {plan.row_tile}, column groups "
+                  f"{plan.col_groups}, blocks " + ", ".join(f"{n} {b}" for n, b in
+                                                           plan.blocks.items()), flush=True)
         with torch.inference_mode():
-            out = mc.run_kernel(*prepared, dh=DH)
+            out = mc.run_kernel(*prepared, dh=DH, seq_len=S)
             ref_states = mc.mlstm_forward_states_reference(*prepared, dh=DH)
             ref = ref_states[0]
             # the user-facing wrapper (prep + launch + unpad) on the raw inputs
             full = mc.mlstm_forward(q, k, v, ig, fg, chunk_size=128)
-            states = mc.run_states_kernel(*prepared, dh=DH)
+            states = mc.run_states_kernel(*prepared, dh=DH, seq_len=S)
             if not torch.equal(out, states[0]):
                 fail(f"{label}: mlstm_fwd's h differs from mlstm_fwd_states' "
                      f"(max|d| {absmax(out - states[0]):.3e})")
             bwd_args = (qf, kf, vf, g, a, s, cm, *ref_states[1:])
-            grads = mc.run_bwd_kernel(*bwd_args, dh=DH)
+            grads = mc.run_bwd_kernel(*bwd_args, dh=DH, seq_len=S)
             ref_grads = mc.mlstm_backward_reference(*bwd_args, dh=DH)
             torch.cuda.synchronize()
             err = max(absmax(out - ref),
@@ -493,9 +518,10 @@ def check_kernels(dev):
             if not (finite(*grads) and max(b_errs) <= BWD_SCALED):
                 fail(f"mlstm_bwd {label}: scaled dq/dk/dv/ds/dax "
                      f"{['%.3e' % e for e in b_errs]} (bound {BWD_SCALED})")
-            calls = {"mlstm_fwd": lambda: mc.run_kernel(*prepared, dh=DH),
-                     "mlstm_fwd_states": lambda: mc.run_states_kernel(*prepared, dh=DH),
-                     "mlstm_bwd": lambda: mc.run_bwd_kernel(*bwd_args, dh=DH)}
+            calls = {"mlstm_fwd": lambda: mc.run_kernel(*prepared, dh=DH, seq_len=S),
+                     "mlstm_fwd_states": lambda: mc.run_states_kernel(*prepared, dh=DH,
+                                                                      seq_len=S),
+                     "mlstm_bwd": lambda: mc.run_bwd_kernel(*bwd_args, dh=DH, seq_len=S)}
             ms = {name: cuda_ms(fn) for name, fn in calls.items()}
             dev_ms = {name: device_ms(fn) for name, fn in calls.items()}
             plain_ms = {
@@ -2824,7 +2850,9 @@ def main():
     report = cuda_build.build(mlstm_cuda.SOURCES)
     for name, rep in report.items():
         for line in ptxas_report(rep["log"]):
-            print(f"  {name}: {line}")
+            spills = re.findall(r"(\d+) bytes spill", line)
+            flag = " [SPILLS]" if any(int(n) for n in spills) else ""
+            print(f"  {name}: {line}{flag}")
     done("build", t0, " ".join(f"{n} {r['seconds']:.1f}s" for n, r in report.items()))
 
     # ---- 3. kernels against their twins

@@ -1,7 +1,9 @@
 """PyTorch port on the card: the CUDA mLSTM kernels (forward, states-saving
 forward, backward) against their plain twins, at the ViL decoder's DH 8 and
 S 32768 too, and on the wide path at the xLSTM families' head widths (DH 15
-to 384, odd widths zero-padded), the differentiable wrapper against autograd
+to 384, odd widths zero-padded) and its edges (a last chunk's true rows
+ending inside a row tile, DH 512, a grid below one wave, the true length
+skipping the padding), the differentiable wrapper against autograd
 through the plain scan, the xLSTM models' kernel path against their plain
 path, the model's kernel path (the forward, the train step, the pretrain
 step) against its plain path, the hoisted 15-subset sweep against the
@@ -111,10 +113,20 @@ def test_states_and_backward_kernels_match_twins(dev, B, NH, S, DH, L, case):
         assert _scaled_err(got, want) <= 1e-4
 
 
+# the wide path's edges: a last chunk whose true rows end inside a row tile
+# (S 200: 72 rows, S 129: 1 row), one chunk of 65 rows (a row tile and one
+# row), DH 512, B*NH 1 at DH 384 (a grid below one wave), the e^{-m} branch
+# at DH 384
+WIDE_EDGES = [(1, 4, 200, 64, 128, "realistic"), (1, 4, 129, 64, 128, "realistic"),
+              (1, 4, 200, 160, 128, "realistic"), (1, 4, 129, 160, 128, "realistic"),
+              (1, 4, 65, 96, 128, "realistic"), (1, 2, 200, 512, 128, "realistic"),
+              (1, 1, 196, 384, 128, "realistic"), (1, 4, 196, 384, 128, "denominator")]
+
+
 # the wide path at the xLSTM families' shapes (UXlstmEnc 3-D at batch 2,
 # stages 3 / 4 / 5; VisionLSTM3D; a ViT-B-wide VisionLSTM; the 2-D stage 6's
-# DH 15; the bottlenecks, one chunk with S < L), an odd width and the e^{-m}
-# branch
+# DH 15; the bottlenecks, one chunk with S < L), an odd width, the e^{-m}
+# branch and the edges above
 @pytest.mark.parametrize("B,NH,S,DH,L,case", [(2, 4, 4096, 128, 128, "realistic"),
                                               (2, 4, 512, 160, 128, "realistic"),
                                               (2, 4, 320, 32, 128, "realistic"),
@@ -125,7 +137,8 @@ def test_states_and_backward_kernels_match_twins(dev, B, NH, S, DH, L, case):
                                               (2, 4, 64, 160, 128, "realistic"),
                                               (2, 4, 15, 256, 128, "realistic"),
                                               (1, 2, 300, 33, 64, "denominator"),
-                                              (1, 4, 200, 6, 32, "realistic")])
+                                              (1, 4, 200, 6, 32, "realistic"),
+                                              *WIDE_EDGES])
 def test_kernels_match_twins_at_every_head_width(dev, B, NH, S, DH, L, case):
     prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH, case=case), L)
     DP = prepared[0].shape[-1]
@@ -150,6 +163,41 @@ def test_kernels_match_twins_at_every_head_width(dev, B, NH, S, DH, L, case):
     for got, want in zip(grads, grads_ref):
         assert torch.isfinite(got).all()
         assert _scaled_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("B,NH,S,DH,L,case", WIDE_EDGES)
+def test_wide_kernels_at_the_true_length(dev, B, NH, S, DH, L, case):
+    """With the true length (as mlstm_forward and mlstm_backward pass it) the
+    wide kernels skip the last chunk's padding and write it as zeros: held
+    to the twins (the cotangent zero past S, as mlstm_backward pads it), h
+    on the true rows bit for bit the all-rows call's."""
+    prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH, case=case), L)
+    BH, Sp, DP = prepared[0].shape
+    states = mlstm_cuda.run_states_kernel(*prepared, dh=DH, seq_len=S)
+    states_ref = mlstm_cuda.mlstm_forward_states_reference(*prepared, dh=DH)
+    out = mlstm_cuda.run_kernel(*prepared, dh=DH, seq_len=S)
+    every_row = mlstm_cuda.run_kernel(*prepared, dh=DH)
+    torch.cuda.synchronize()
+    assert torch.equal(out, states[0])
+    assert torch.equal(out[:, :S], every_row[:, :S])
+    assert torch.count_nonzero(out[:, S:]) == 0
+    err = float((out - states_ref[0]).abs().max())
+    assert err <= 5e-4 and _scaled_err(out, states_ref[0]) <= 2e-5   # as chip_smoke.py
+    for got, want in zip(states[1:3], states_ref[1:3]):
+        assert _scaled_err(got, want) <= 2e-5
+    assert torch.equal(states[3], states_ref[3])
+    g = torch.randn_like(prepared[0])
+    g[..., DH:] = 0.0
+    g[:, S:] = 0.0
+    args = (*prepared[:3], g, *prepared[3:], *states_ref[1:])
+    grads = mlstm_cuda.run_bwd_kernel(*args, dh=DH, seq_len=S)
+    grads_ref = mlstm_cuda.mlstm_backward_reference(*args, dh=DH)
+    torch.cuda.synchronize()
+    for got, want in zip(grads, grads_ref):
+        assert torch.isfinite(got).all()
+        assert _scaled_err(got, want) <= 1e-4
+    for got in grads[:3]:
+        assert torch.count_nonzero(got[:, S:]) == 0
 
 
 @pytest.mark.parametrize("DH", [45, 128])

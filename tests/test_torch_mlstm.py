@@ -16,11 +16,12 @@ from xlstm_hved_tpu.ops.mlstm import mlstm_chunkwise as j_chunkwise
 from xlstm_hved_tpu.ops.mlstm_pallas import _m_entry_chain, _pallas_forward, _prep, mlstm_pallas
 from xlstm_hved_torch.nn.vil import MatrixLSTMCell
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise, mlstm_quadratic
-from xlstm_hved_torch.ops.mlstm_cuda import (MAX_DH, mlstm_backward, mlstm_forward,
+from xlstm_hved_torch.ops.mlstm_cuda import (KEY_TILE, MAX_DH, SMS, column_groups,
+                                             mlstm_backward, mlstm_forward,
                                              mlstm_forward_reference,
                                              mlstm_forward_states_reference, padded_width,
                                              prepare, run_bwd_kernel, run_kernel,
-                                             run_states_kernel)
+                                             run_states_kernel, wide_plan)
 
 ATOL, RTOL = 2e-4, 1e-3
 
@@ -141,7 +142,70 @@ def test_kernel_launchers_refuse_what_they_cannot_run():
         run_kernel(qf[:, :48].contiguous(), kf, vf, a, s, cm, dh=16)   # Sp is not the chunks' span
     with pytest.raises(ValueError, match="3-D"):
         run_bwd_kernel(qf[None], kf, vf, qf, a, s, cm, cent, nent, ment, dh=16)
+    for seq_len in (32, 65):   # the true length ends in the last chunk
+        with pytest.raises(ValueError, match=f"length {seq_len}"):
+            run_kernel(*prepared, dh=16, seq_len=seq_len)
     assert [fn.launches for fn in counters] == before
+
+
+# the five timed wide cases of chip_smoke.py: (B*NH, S, DH)
+TIMED_WIDE = [(8, 4096, 128), (8, 512, 160), (8, 320, 32), (4, 4096, 96), (4, 196, 384)]
+
+
+def _row_blocks(BH, nchunks, L, rows_last, tile):
+    """The (chunk, first row, true rows, keys) of every block of a row-tiled
+    launch, decoded as csrc/mlstm_wide.cuh::tile_coords decodes blockIdx.x."""
+    tiles = -(-L // tile)
+    for b in range(BH * nchunks * tiles):
+        cidx, t0 = divmod(b, tiles)
+        t0 *= tile
+        rows = rows_last if cidx % nchunks == nchunks - 1 else L
+        live = max(0, min(tile, rows - t0))
+        yield cidx, t0, live, min(t0 + tile, rows)
+
+
+@pytest.mark.parametrize("BH,S,DH", TIMED_WIDE + [(1, 65, 96), (1, 129, 64), (4, 200, 160),
+                                                  (2, 200, 512), (1, 196, 384)])
+def test_wide_plan_covers_every_true_row_once_and_fills_the_card(BH, S, DH):
+    """The wide grids: every true row (and key) of every chunk in one row
+    tile, no key loaded past the tile's last row (nothing above the
+    diagonal), every column unit in one group, and at least SMS blocks in
+    each L x L launch, or one block per (head, chunk, row tile) where
+    there are fewer."""
+    L = min(128, S)
+    nchunks = -(-S // L)
+    rows_last = S - (nchunks - 1) * L
+    DP = padded_width(DH)
+    plan = wide_plan(BH, nchunks, L, DP)
+    seen = np.zeros((BH * nchunks, L), dtype=int)
+    for cidx, t0, live, keys in _row_blocks(BH, nchunks, L, rows_last, plan.row_tile):
+        seen[cidx, t0:t0 + live] += 1
+        assert live == 0 or keys == t0 + live     # keys 0 .. the tile's last true row
+    true_rows = np.zeros_like(seen)
+    true_rows[:, :L] = 1
+    true_rows.reshape(BH, nchunks, L)[:, -1, rows_last:] = 0
+    np.testing.assert_array_equal(seen, true_rows)
+    units = DP // 32
+    groups = column_groups(units, plan.col_groups)
+    assert all(end > begin for begin, end in groups)
+    assert sum(end - begin for begin, end in groups) == units
+    assert all(b == e for (_, e), (b, _) in zip(groups, groups[1:]))
+    tiles = BH * nchunks * -(-L // plan.row_tile)
+    launches = ("readout", "bwd_gnum", "bwd_rows", "bwd_cols")
+    assert all(plan.blocks[n] == tiles * plan.col_groups for n in launches[:3])
+    assert plan.blocks["bwd_cols"] == BH * nchunks * -(-L // KEY_TILE) * plan.col_groups
+    for launch in launches:
+        assert plan.blocks[launch] >= min(SMS, tiles)
+    if plan.col_groups > 1:   # split only as far as a wave needs
+        fewer = column_groups(units, plan.col_groups - 1)
+        assert tiles * sum(end > begin for begin, end in fewer) < SMS
+
+
+def test_wide_plan_at_the_timed_cases():
+    """The plan chip_smoke.py prints for the five timed wide cases."""
+    got = [tuple(wide_plan(BH, -(-S // min(128, S)), min(128, S), padded_width(DH))[:2])
+           for BH, S, DH in TIMED_WIDE]
+    assert got == [(64, 1), (32, 2), (32, 1), (64, 1), (32, 6)]
 
 
 @pytest.mark.parametrize("dh,width", [(1, 8), (6, 8), (8, 8), (9, 16), (16, 16), (17, 32),
@@ -277,6 +341,16 @@ def test_states_twin_matches_pallas_save_states_dh8(S, L, case):
     _check_states_twin(1, 2, S, 8, L, case)
 
 
+# the wide path's edges: the widest head with a last chunk of 72 true rows,
+# a last chunk of 1 true row, one chunk of 65 rows (a row tile and one row)
+WIDE_EDGES = [(200, 512), (129, 64), (65, 96)]
+
+
+@pytest.mark.parametrize("S,DH", WIDE_EDGES)
+def test_states_twin_matches_pallas_save_states_wide(S, DH):
+    _check_states_twin(1, 2, S, DH, 128, "realistic")
+
+
 @pytest.mark.parametrize("B,NH,S,DH,L,case,atol,rtol", [
     (2, 3, 97, 16, 32, "realistic", 2e-4, 1e-3),      # padded, several chunks
     (2, 3, 130, 16, 64, "realistic", 2e-4, 1e-3),
@@ -286,6 +360,7 @@ def test_states_twin_matches_pallas_save_states_dh8(S, L, case):
     (2, 2, 96, 16, 16, "padding_tail", 2e-4, 1e-3),
     (1, 2, 64, 16, 16, "underflow", 2e-4, 1e-3),
     (2, 3, 97, 16, 32, "denominator", 3e-4, 2e-3),
+    *[(1, 2, S, DH, 128, "realistic", 2e-4, 1e-3) for S, DH in WIDE_EDGES],
 ])
 def test_backward_twin_matches_pallas_vjp(B, NH, S, DH, L, case, atol, rtol):
     """The fused backward on CPU tensors (states twin, backward twin, gate

@@ -1,4 +1,4 @@
-// Chunkwise mLSTM forward for Hopper (sm_90a), fp32 on the CUDA cores.
+// Chunkwise mLSTM forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels xlstm_hved_tpu/ops/mlstm_pallas.py::
 // _mlstm_kernel and _mlstm_states_kernel (both driven by _pallas_forward).
@@ -32,11 +32,13 @@
 // Padded keys (igate -1e30, zero k and v) add exact zeros.
 //
 // Precision: every product is an IEEE fp32 FMA on the CUDA cores, and expf
-// is the full-precision libm call (no fast math). No tensor cores: TF32
-// products (10-bit mantissa) gave O(1) output error through the
-// max(|rowsum|, e^{-m}) normaliser, which amplifies truncated products.
+// is the full-precision libm call (no fast math). No TF32: its products
+// (10-bit mantissa) gave O(1) output error through the max(|rowsum|,
+// e^{-m}) normaliser, which amplifies truncated products; split-precision
+// 3xTF32 on the wide path broke the absolute bound at DH 512
+// (mlstm_wide.cuh).
 //
-// What bounds it: the work is small (about 0.09 GFLOP and 4.4 MB for the
+// What bounds the narrow path: the work is small (about 0.09 GFLOP and 4.4 MB for the
 // flagship's 4 heads at S = 4096, about 1.4 us at the card's fp32 rate), so
 // latency bounds each phase, not a peak rate. Phases 1 and 3 run B*NH x
 // S/L blocks (128 at S = 4096), one wave on the 132 SMs; the readout's
@@ -49,12 +51,16 @@
 // Head widths. The kernels above are built for DH 8 and 16 (the flagship's
 // and the ViL decoder's widths): narrower heads are zero-padded to one of
 // them by the wrapper. Wider heads (the UxLSTM and Vision-LSTM ViLs, DH 32
-// to 384) take the wide path of mlstm_wide.cuh: DH zero-padded to a
-// multiple of 32, the chunk states as 32 x 32 tiles, the carry scan split
+// to 512) take the wide path of mlstm_wide.cuh, DH zero-padded to a
+// multiple of 32, in three launches as well: the chunk states as 64 x 128
+// tiles (wide_outer_kernel), the carry scan split
 // across blocks (each block recomputes the same m* chain, so m* stays
-// bitwise), the attention and denominators once per (head, chunk), then the
-// readout per 32-column tile of h: four launches. In both paths the scale
-// 1/sqrt(DH) is taken from the true DH.
+// bitwise), and the fused readout (wide_readout_kernel): one block per
+// (head, chunk, row tile of 64 or 32 rows, group of value columns) forms
+// its causal scores, row sums and denominators in shared memory and reads
+// h out of them and the entry state, with no L x L workspace in device
+// memory. What bounds the wide path is in mlstm_wide.cuh. In both paths the
+// scale 1/sqrt(DH) is taken from the true DH.
 
 #include <cuda_runtime.h>
 
@@ -293,38 +299,135 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   return cudaGetLastError();
 }
 
-// The wide path (dp a multiple of 32): chunk states, carry scan, attention
-// and denominators, readout per column tile. attn (bh * nchunks, chunk,
-// chunk), rowsum, denom and qn (bh * seq_len) are workspace.
+// The wide path's readout. Grid (bh * nchunks * ceil(chunk / TM), column
+// groups), RowSmem<TM>::kBytes of dynamic shared memory. One block: rows t0
+// .. t0 + TM - 1 of one chunk and one group of value columns. It forms the
+// row tile's causal scores and denominators (row_scores), then per 128
+// columns of h
+//   acc = e^{m* - M_t} (q_t / sqrt(DH)) C*  + sum_{j <= t} attn[t][j] v_j
+// (the inter-chunk term over the head, then the intra-chunk term over the
+// keys, both products of register tiles), and h = acc / denom_t; rows past
+// the true sequence length get 0. No workspace: attn stays in shared memory.
+template <int TM>
+__global__ void __launch_bounds__(mlstm_wide::kThreads, 2)
+wide_readout_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ a,
+                    const float* __restrict__ s, const float* __restrict__ cm,
+                    const float* __restrict__ cent, const float* __restrict__ nent,
+                    const float* __restrict__ ment, float* __restrict__ out, int nchunks,
+                    int chunk, int rows_last, int dp, float scale, float eps) {
+  using namespace mlstm_wide;
+  extern __shared__ __align__(16) float smem[];
+  const RowSmem<TM> sm(smem);
+  const TileCoords tc = tile_coords<TM>(nchunks, chunk, rows_last);
+  const ColumnGroup cols = column_group(dp);
+  if (cols.begin >= cols.end) return;
+  float* o = out + (tc.cidx * chunk + tc.t0) * dp;
+  if (tc.live == 0) {  // padding only
+    const int w = cols.end - cols.begin;
+    for (int e = threadIdx.x; e < tc.tm * w; e += kThreads) {
+      o[(e / w) * dp + cols.begin + e % w] = 0.0f;
+    }
+    return;
+  }
+  row_scores<TM>(sm, tc, q, k, a, s, cm, nent, ment, chunk, dp, scale, eps);
+
+  const size_t goff = tc.cidx * chunk;
+  const int nk = min(tc.t0 + TM, tc.rows);
+  const float* qrow = q + (goff + tc.t0) * dp;
+  const float* state = cent + tc.cidx * dp * dp;
+  for (int n0 = cols.begin; n0 < cols.end; n0 += kBN) {
+    const int ncols = min(kBN, cols.end - n0);
+    Acc<TM> acc;
+    const bool idle = acc.row0 >= tc.live || acc.col0 >= ncols;
+    const int last = tc.t0 + min(acc.row0 + 31, tc.live - 1);  // the warp's last key
+    pipeline(
+        dp / kTile, sm.ring, RowSmem<TM>::kStage,
+        [&](int i, float* buf) {
+          stage(buf, kLdK, qrow + i * kTile, dp, TM, kTile, tc.live, kTile);
+          stage(buf + TM * kLdK, kLdN, state + static_cast<size_t>(i) * kTile * dp + n0, dp, kTile,
+                kBN, kTile, ncols);
+        },
+        [&](int, float* buf) {
+          if (!idle) {
+            warp_product<Major::kRow, Major::kRow>(acc, buf, kLdK, 0, buf + TM * kLdK, kLdN, 0, 4);
+          }
+        });
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < Acc<TM>::kNT; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = acc.row(mi, r);
+          if (row < tc.live) acc.c[mi][ni][r] *= sm.inter[row] * scale;
+        }
+    pipeline(
+        (nk + kTile - 1) / kTile, sm.ring, RowSmem<TM>::kStage,
+        [&](int i, float* buf) {
+          stage(buf, kLdN, v + (goff + static_cast<size_t>(i) * kTile) * dp + n0, dp, kTile, kBN,
+                nk - i * kTile, ncols);
+        },
+        [&](int i, float* buf) {
+          const int steps = causal_steps(i * kTile, last);
+          if (!idle && steps > 0) {
+            warp_product<Major::kRow, Major::kRow>(acc, sm.p, kLdS, i * kTile, buf, kLdN, 0, steps);
+          }
+        });
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < Acc<TM>::kNT; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = acc.row(mi, r), col = acc.col(ni, r);
+          if (row < tc.tm && col < ncols) {
+            o[static_cast<size_t>(row) * dp + n0 + col] =
+                row < tc.live ? acc.c[mi][ni][r] / sm.denom[row] : 0.0f;
+          }
+        }
+  }
+}
+
+template <int TM>
+cudaError_t launch_readout(const float* q, const float* k, const float* v, const float* a,
+                           const float* s, const float* cm, const float* cent,
+                           const float* nent, const float* ment, float* out, int bh,
+                           int nchunks, int chunk, int rows_last, int dp, int col_groups,
+                           float scale, float eps, int device, cudaStream_t st) {
+  using mlstm_wide::RowSmem;
+  static bool smem_set[mlstm_wide::kMaxDevices] = {};
+  cudaError_t err = mlstm_wide::allow_smem(wide_readout_kernel<TM>, RowSmem<TM>::kBytes, device,
+                                           smem_set);
+  if (err != cudaSuccess) return err;
+  const unsigned tiles = static_cast<unsigned>(bh) * nchunks * ((chunk + TM - 1) / TM);
+  wide_readout_kernel<TM><<<dim3(tiles, col_groups), mlstm_wide::kThreads, RowSmem<TM>::kBytes,
+                            st>>>(q, k, v, a, s, cm, cent, nent, ment, out, nchunks, chunk,
+                                  rows_last, dp, scale, eps);
+  return cudaGetLastError();
+}
+
+// The wide path (dp a multiple of 32): chunk states, carry scan, readout.
 cudaError_t launch_wide(const float* q, const float* k, const float* v, const float* a,
                         const float* s, const float* cm, float* out, float* kc, float* nc,
-                        float* cent, float* nent, float* ment, float* attn, float* rowsum,
-                        float* denom, float* qn, int bh, int nchunks, int chunk, int dp,
-                        float scale, float eps, cudaStream_t st) {
+                        float* cent, float* nent, float* ment, int bh, int nchunks, int chunk,
+                        int rows_last, int dp, int row_tile, int col_groups, float scale,
+                        float eps, int device, cudaStream_t st) {
   using namespace mlstm_wide;
-  const unsigned blocks = static_cast<unsigned>(bh) * nchunks;
-  const unsigned tiles = dp / kTile;
   const unsigned state_blocks = (dp * dp + dp + kThreads - 1) / kThreads;
-  wide_outer_kernel<Outer::kChunkState><<<dim3(blocks, tiles, tiles), kThreads, 0, st>>>(
-      k, v, s, cm, nullptr, nullptr, nullptr, kc, nc, chunk, dp, 1.0f);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_outer<Outer::kChunkState>(k, v, s, cm, nullptr, nullptr, nullptr, kc,
+                                                     nc, bh, nchunks, chunk, rows_last, dp, 1.0f,
+                                                     device, st);
   if (err != cudaSuccess) return err;
   wide_fwd_scan_kernel<<<dim3(bh, state_blocks), kThreads, 0, st>>>(a, cm, kc, nc, cent, nent,
                                                                     ment, nchunks, chunk, dp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = scores_smem_bytes(dp);
-  err = cudaFuncSetAttribute(wide_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  wide_scores_kernel<<<blocks, kThreads, smem, st>>>(q, k, a, s, cm, nent, ment, attn, rowsum,
-                                                     denom, qn, chunk, dp, scale, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  wide_apply_kernel<Apply::kReadout><<<dim3(blocks, tiles), kThreads, 0, st>>>(
-      attn, v, q, cent, nullptr, nullptr, s, cm, ment, denom, nullptr, out, nullptr, chunk, dp,
-      scale);
-  return cudaGetLastError();
+  return row_tile == 64
+             ? launch_readout<64>(q, k, v, a, s, cm, cent, nent, ment, out, bh, nchunks, chunk,
+                                  rows_last, dp, col_groups, scale, eps, device, st)
+             : launch_readout<32>(q, k, v, a, s, cm, cent, nent, ment, out, bh, nchunks, chunk,
+                                  rows_last, dp, col_groups, scale, eps, device, st);
 }
 
 }  // namespace
@@ -334,21 +437,27 @@ cudaError_t launch_wide(const float* q, const float* k, const float* v, const fl
 // chunk; the workspace kc (bh, seq_len / chunk, dp, dp) and nc (bh,
 // seq_len / chunk, dp); the entry states cent (bh, seq_len / chunk, dp, dp),
 // nent (bh, seq_len / chunk, dp) and ment (bh, seq_len / chunk), written
-// here; for the wide path (dp a multiple of 32, up to 512) also attn
-// (bh * seq_len / chunk, chunk, chunk), rowsum, denom and qn (bh, seq_len),
-// unused by the narrow one (dp 8 or 16). All fp32, contiguous, on `device`.
-// Enqueues the launches on `stream` and returns the first cudaError_t of a
-// launch (0 on success).
+// here. All fp32, contiguous, 16-byte aligned, on `device`. The wide path
+// (dp a multiple of 32, up to 512) also takes rows_last, the true rows of
+// each head's last chunk (1 .. chunk; the rows past it are padding, written
+// as 0), and its plan: row_tile (64 or 32) and col_groups (the value columns
+// split over that many blocks per row tile); the narrow one (dp 8 or 16)
+// ignores them. Enqueues the launches on `stream` and returns the first
+// cudaError_t of a launch (0 on success).
 extern "C" int mlstm_fwd_launch(const float* q, const float* k, const float* v,
                                 const float* a, const float* s, const float* cm,
                                 float* out, float* kc, float* nc, float* cent,
-                                float* nent, float* ment, float* attn, float* rowsum,
-                                float* denom, float* qn, int bh, int seq_len, int chunk,
-                                int dp, int dh, float eps, int device, void* stream) {
+                                float* nent, float* ment, int bh, int seq_len, int chunk,
+                                int dp, int dh, int rows_last, int row_tile, int col_groups,
+                                float eps, int device, void* stream) {
   const bool wide = dp % mlstm_wide::kTile == 0 && dp <= mlstm_wide::kWideMaxDh;
   if (bh <= 0 || chunk <= 0 || chunk > kMaxChunk || seq_len % chunk != 0 ||
       seq_len / chunk > kMaxGridY || dh <= 0 || dh > dp ||
       !(dp == 8 || dp == 16 || wide)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (wide && (rows_last < 1 || rows_last > chunk || (row_tile != 64 && row_tile != 32) ||
+               col_groups < 1 || col_groups > dp / mlstm_wide::kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -364,9 +473,9 @@ extern "C" int mlstm_fwd_launch(const float* q, const float* k, const float* v,
     return static_cast<int>(launch<16>(q, k, v, a, s, cm, out, kc, nc, cent, nent, ment, bh,
                                        nchunks, chunk, scale, eps, st));
   }
-  return static_cast<int>(launch_wide(q, k, v, a, s, cm, out, kc, nc, cent, nent, ment, attn,
-                                      rowsum, denom, qn, bh, nchunks, chunk, dp, scale, eps,
-                                      st));
+  return static_cast<int>(launch_wide(q, k, v, a, s, cm, out, kc, nc, cent, nent, ment, bh,
+                                      nchunks, chunk, rows_last, dp, row_tile, col_groups,
+                                      scale, eps, device, st));
 }
 
 extern "C" const char* mlstm_fwd_error_string(int code) {

@@ -17,9 +17,12 @@ backward). On the card only the chunk-to-chunk carry is sequential, so one
 call of each wrapper is three CUDA launches (DH <= 16): per (head, chunk)
 blocks for the work of each chunk, a short scan over the chunks per head
 for the carry (C*, n*, m* forward; dC, dn, dm backward), then per (head,
-chunk) blocks again; the wide path (DH > 16) splits the same phases over
-32-wide tiles of the head in four launches (forward) or ten (backward).
-The wrappers allocate every workspace; the kernels allocate nothing.
+chunk) blocks again. The wide path (DH > 16) runs the forward in three
+launches as well (chunk states, scan, a fused readout per row tile) and the
+backward in seven (rows in two, the readout's state adjoints, scan,
+columns per key tile, the last sums in two); `wide_plan` chooses its row
+tiles and how many blocks share a tile's value columns. The wrappers
+allocate every workspace; the kernels allocate nothing.
 
 As on the TPU, the exact fp32 gate transforms stay tensor ops around the
 launches: `prepare` (padding to a chunk multiple, the per-chunk cumsum of
@@ -47,15 +50,22 @@ reach the same padding and epilogue code.
 Head widths: every DH from 1 to MAX_DH. `prepare` zero-pads DH to
 `padded_width(DH)`: 8 or 16 for the narrow kernels (the flagship's and the
 ViL decoder's widths, a row's head in registers), else a multiple of 32 for
-the wide path (`csrc/mlstm_wide.cuh`: the head dimension in 32-wide tiles,
+the wide path (`csrc/mlstm_wide.cuh`: products of register-tiled blocks,
 the UxLSTM and Vision-LSTM ViLs' DH 32 to 384). Zero columns of q, k, v
 and g are exact, so the kernels and the twins take the true width `dh` for
 the scale 1/sqrt(DH), and the callers slice the padded columns off.
+
+Sequence lengths: `prepare` pads S to whole chunks. The wrappers take the
+true length as `seq_len` (default: all the prepared rows are true); the
+wide path then skips the last chunk's padded rows and writes them as
+zeros, which is what the twins give for padding (zero q, k, v and, in the
+backward, a zero cotangent there: `mlstm_backward` pads g so).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -70,13 +80,17 @@ WIDE_TILE = 32        # the wide path's head-dimension tile
 MAX_DH = 512
 MAX_CHUNK = 128
 BWD_MODES = ("fused", "scan")
+SMS = 132             # an H100 SXM's streaming multiprocessors: one wave of blocks
+ROW_TILES = (64, 32)  # the wide path's row tiles, the larger first
+KEY_TILE = 32         # the backward's key tiles (csrc/mlstm_bwd.cu, kKeyTile)
+FINAL_SPAN = 4096     # entries of dC * C* per block of its last sums (kFinalSpan)
 
 _launchers = {}
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # function: (source, number of tensor pointers)
-    "mlstm_fwd_launch": ("mlstm_fwd", 16),
-    "mlstm_bwd_launch": ("mlstm_bwd", 30),
+    # function: (source, number of tensor pointers, number of int sizes)
+    "mlstm_fwd_launch": ("mlstm_fwd", 12, 8),
+    "mlstm_bwd_launch": ("mlstm_bwd", 29, 8),
 }
 
 
@@ -84,10 +98,10 @@ def _launcher(fn_name: str):
     """The ctypes function `fn_name` and its library's error-string getter,
     declared once (the library builds on first use)."""
     if fn_name not in _launchers:
-        source, n_ptr = _SIGNATURES[fn_name]
+        source, n_ptr, n_int = _SIGNATURES[fn_name]
         lib = cuda_build.load(source)
         fn = getattr(lib, fn_name)
-        fn.argtypes = [_PTR] * n_ptr + [_INT] * 5 + [_FLOAT, _INT, _PTR]
+        fn.argtypes = [_PTR] * n_ptr + [_INT] * n_int + [_FLOAT, _INT, _PTR]
         fn.restype = _INT
         error_string = getattr(lib, f"{source}_error_string")
         error_string.argtypes = [_INT]
@@ -96,11 +110,10 @@ def _launcher(fn_name: str):
     return _launchers[fn_name]
 
 
-def _launch(fn_name: str, pointers, dev, BH: int, Sp: int, L: int, DP: int, dh: int,
-            eps: float):
+def _launch(fn_name: str, pointers, sizes, eps: float, dev):
     fn, error_string = _launcher(fn_name)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(*pointers, BH, Sp, L, DP, dh, eps, dev.index, stream)
+    rc = fn(*pointers, *sizes, eps, dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: {error_string(rc).decode()} (code {rc})")
 
@@ -113,6 +126,57 @@ def padded_width(dh: int) -> int:
     if dh <= NARROW_DH[-1]:
         return next(w for w in NARROW_DH if dh <= w)
     return -(-dh // WIDE_TILE) * WIDE_TILE
+
+
+class WidePlan(NamedTuple):
+    """The wide path's grids for one call: row tiles of `row_tile` rows for
+    the forward readout and the backward's rows (the same tiles, so that the
+    backward recomputes the forward's denominators bit for bit) and key
+    tiles of KEY_TILE keys for the backward's columns; each tile's value
+    columns split over `col_groups` blocks."""
+    row_tile: int
+    col_groups: int
+    blocks: dict   # launch -> blocks of its grid
+
+
+def column_groups(units: int, groups: int):
+    """The column units [begin, end) of each of `groups` blocks sharing
+    `units` 32-wide units, ceil(units / groups) each, as the kernels cut
+    them (csrc/mlstm_wide.cuh::column_group); a group past the end is
+    empty."""
+    per = -(-units // groups)
+    return [(min(units, i * per), min(units, (i + 1) * per)) for i in range(groups)]
+
+
+def _split(tiles: int, units: int) -> int:
+    """The fewest column groups, none of them empty, that give tiles x
+    groups >= SMS blocks (or every unit its own group)."""
+    for n in range(1, units + 1):
+        groups = sum(end > begin for begin, end in column_groups(units, n))
+        if tiles * groups >= SMS:
+            return groups
+    return units
+
+
+def wide_plan(BH: int, nchunks: int, L: int, DP: int) -> WidePlan:
+    """Row tiles of 64 rows where the (head, chunk, row tile) blocks fill a
+    wave of SMS, else 32; then the value columns split until the blocks fill
+    a wave (each split recomputes its tile's scores). The backward's key
+    tiles, no larger than the row tiles, split the same way."""
+    tiles = lambda t: BH * nchunks * -(-L // t)
+    row_tile = next((t for t in ROW_TILES if tiles(t) >= SMS), ROW_TILES[-1])
+    units = DP // WIDE_TILE
+    col_groups = _split(tiles(row_tile), units)
+    split = tiles(row_tile) * col_groups
+    blocks = {"outer": BH * nchunks * -(-DP // 64) * -(-DP // 128), "readout": split,
+              "bwd_gnum": split, "bwd_rows": split, "bwd_cols": tiles(KEY_TILE) * col_groups}
+    return WidePlan(row_tile, col_groups, blocks)
+
+
+def _aligned(t):
+    """t, or a copy of it whose data starts on a 16-byte boundary (the
+    kernels copy rows as 16-byte cp.async chunks)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def prepare(q, k, v, igate, fgate, chunk_size: int = 128):
@@ -128,7 +192,7 @@ def prepare(q, k, v, igate, fgate, chunk_size: int = 128):
     qp, kp, vp, ip, fp, L = pad_to_chunks(q, k, v, igate, fgate, chunk_size)
     Sp = qp.shape[2]
     widen = (lambda t: F.pad(t, (0, DP - DH))) if DP > DH else (lambda t: t)
-    flat = [widen(t.to(torch.float32)).reshape(B * NH, Sp, DP).contiguous()
+    flat = [_aligned(widen(t.to(torch.float32)).reshape(B * NH, Sp, DP).contiguous())
             for t in (qp, kp, vp)]
     gates = [t.contiguous() for t in chunk_gates(ip, fp, L)]
     return (*flat, *gates)
@@ -268,124 +332,143 @@ def mlstm_backward_reference(q, k, v, g, a, s, cm, cent, nent, ment,
 
 # ---------------------------------------------------------------- launchers
 
-def _prepared_dims(name, q, a, dh):
-    """(BH, Sp, DP, dh, L) of prepared q (BH, Sp, DP) and a (BH, Sp // L, L)
-    for heads of true width dh, if the kernels take them: DP is
-    padded_width(dh)."""
+def _prepared_dims(name, q, a, dh, seq_len):
+    """(BH, Sp, DP, L, rows_last) of prepared q (BH, Sp, DP) and a (BH,
+    Sp // L, L) for heads of true width dh and a true length seq_len (None:
+    Sp), if the kernels take them: DP is padded_width(dh), and seq_len ends
+    in the last chunk (rows_last of its rows are true)."""
     if q.dim() != 3 or a.dim() != 3:
         raise ValueError(f"{name}: q and a must be 3-D; got {tuple(q.shape)}, {tuple(a.shape)}")
     BH, Sp, DP = q.shape
     nchunks, L = a.shape[1:]
+    seq_len = Sp if seq_len is None else seq_len
     if (nchunks * L != Sp or L > MAX_CHUNK or not 1 <= dh <= MAX_DH
-            or padded_width(dh) != DP):
+            or padded_width(dh) != DP or not Sp - L < seq_len <= Sp):
         raise ValueError(f"{name}: unsupported prepared shapes q {tuple(q.shape)}, "
-                         f"a {tuple(a.shape)} for head width {dh}")
-    return BH, Sp, DP, dh, L
+                         f"a {tuple(a.shape)} for head width {dh} and length {seq_len}")
+    return BH, Sp, DP, L, seq_len - (nchunks - 1) * L
 
 
 def _pointers(name, tensors, shapes):
     """The data pointers of `tensors`, once each is a contiguous fp32 tensor
-    of its shape on the first one's CUDA device (one pass, as this runs
-    before every launch); and that device."""
+    of its shape on the first one's CUDA device, 16-byte aligned (one pass,
+    as this runs before every launch); and that device."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors; got {dev}")
     for t, shape in zip(tensors, shapes):
         if (t.shape != shape or t.dtype != torch.float32 or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} takes contiguous fp32 tensors on {dev} of the prepared "
-                             f"shapes; got {tuple(t.shape)} {t.dtype} on {t.device} where "
-                             f"{tuple(shape)} was expected")
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} takes contiguous, 16-byte aligned fp32 tensors on {dev} "
+                             f"of the prepared shapes; got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} where {tuple(shape)} was expected")
     return [t.data_ptr() for t in tensors], dev
 
 
+_ALIGN = 64   # workspace pieces start on 256-byte boundaries
+
+
 def _workspace(like, sizes):
-    """One fp32 allocation cut into consecutive pieces of `sizes` elements:
-    the buffer and a pointer to each piece. Workspaces the caller never sees
-    need no tensor views, so one call allocates once, however many it has."""
-    buf = like.new_empty(sum(sizes))
-    ptr, pieces = buf.data_ptr(), []
+    """One fp32 allocation cut into pieces of `sizes` elements, each
+    starting on a 256-byte boundary: the buffer and each piece's offset in
+    it. Workspaces the caller never sees need no tensor views, so one call
+    allocates once, however many it has."""
+    offsets, total = [], 0
     for n in sizes:
-        pieces.append(ptr)
-        ptr += 4 * n
-    return buf, pieces
+        offsets.append(total)
+        total += -(-n // _ALIGN) * _ALIGN
+    return like.new_empty(total), offsets
 
 
 def _wide(DP: int) -> bool:
     return DP > NARROW_DH[-1]
 
 
-def _forward_launch(name, q, k, v, a, s, cm, eps, dh, states: bool):
-    """The launches of `csrc/mlstm_fwd.cu`, the entry states, the chunks'
-    local states and (wide path) the attention and row scalars in one
-    workspace. Returns h, and with `states` the entry states as views of the
-    workspace."""
-    BH, Sp, DP, dh, L = _prepared_dims(name, q, a, dh)
+def _plan_sizes(BH, Sp, L, DP, dh, rows_last):
+    """The int arguments of a launch (the sizes, rows_last and the wide
+    plan's row tile and column groups, which the narrow kernels ignore) and
+    the plan."""
+    plan = wide_plan(BH, Sp // L, L, DP) if _wide(DP) else WidePlan(ROW_TILES[0], 1, {})
+    return (BH, Sp, L, DP, dh, rows_last, plan.row_tile, plan.col_groups), plan
+
+
+def _forward_launch(name, q, k, v, a, s, cm, eps, dh, seq_len, states: bool):
+    """The launches of `csrc/mlstm_fwd.cu`, the entry states and the chunks'
+    local states in one workspace. Returns h, and with `states` the entry
+    states as views of the workspace."""
+    BH, Sp, DP, L, rows_last = _prepared_dims(name, q, a, dh, seq_len)
     nchunks = Sp // L
     ptrs, dev = _pointers(name, (q, k, v, a, s, cm), (q.shape,) * 3 + ((BH, nchunks, L),) * 3)
     n_c, n_n, n_m = BH * nchunks * DP * DP, BH * nchunks * DP, BH * nchunks
-    n_att, n_a = (BH * nchunks * L * L, BH * Sp) if _wide(DP) else (0, 0)
     out = torch.empty_like(q)
-    buf, (cent, nent, ment, k_loc, n_loc, attn, rowsum, denom, qn) = _workspace(
-        q, (n_c, n_n, n_m, n_c, n_n, n_att, n_a, n_a, n_a))
-    _launch("mlstm_fwd_launch", (*ptrs, out.data_ptr(), k_loc, n_loc, cent, nent, ment,
-                                 attn, rowsum, denom, qn), dev, BH, Sp, L, DP, dh, eps)
+    buf, offsets = _workspace(q, (n_c, n_n, n_m, n_c, n_n))
+    base = buf.data_ptr()
+    sizes, _ = _plan_sizes(BH, Sp, L, DP, dh, rows_last)
+    _launch("mlstm_fwd_launch", (*ptrs, out.data_ptr(), base + 4 * offsets[3],
+                                 base + 4 * offsets[4], *(base + 4 * o for o in offsets[:3])),
+            sizes, eps, dev)
     if not states:
         return out
-    return (out, buf[:n_c].view(BH, nchunks, DP, DP),
-            buf[n_c:n_c + n_n].view(BH, nchunks, DP),
-            buf[n_c + n_n:n_c + n_n + n_m].view(BH, nchunks))
+    c0, n0, m0 = offsets[:3]
+    return (out, buf[c0:c0 + n_c].view(BH, nchunks, DP, DP),
+            buf[n0:n0 + n_n].view(BH, nchunks, DP), buf[m0:m0 + n_m].view(BH, nchunks))
 
 
-def run_kernel(q, k, v, a, s, cm, eps: float = MLSTM_EPS, *, dh: int):
+def run_kernel(q, k, v, a, s, cm, eps: float = MLSTM_EPS, *, dh: int, seq_len=None):
     """One call of `mlstm_fwd` on `prepare`d CUDA tensors
     (q, k, v: (BH, Sp, DP); a, s, cm: (BH, Sp // L, L), all contiguous
-    fp32; dh the true head width): its launches, the entry
-    states kept in a workspace. Returns (BH, Sp, DP) fp32, bitwise
-    `run_states_kernel`'s h. Adds one to `run_kernel.launches`."""
-    out = _forward_launch("mlstm_fwd", q, k, v, a, s, cm, eps, dh, states=False)
+    fp32; dh the true head width; seq_len the true length, default Sp): its
+    launches, the entry states kept in a workspace. Returns (BH, Sp, DP)
+    fp32, bitwise `run_states_kernel`'s h. Adds one to
+    `run_kernel.launches`."""
+    out = _forward_launch("mlstm_fwd", q, k, v, a, s, cm, eps, dh, seq_len, states=False)
     run_kernel.launches += 1
     return out
 
 
-def run_states_kernel(q, k, v, a, s, cm, eps: float = MLSTM_EPS, *, dh: int):
+def run_states_kernel(q, k, v, a, s, cm, eps: float = MLSTM_EPS, *, dh: int, seq_len=None):
     """One call of `mlstm_fwd_states`: as `run_kernel`, and also each
     chunk's entry state. Returns h (BH, Sp, DP), cent (BH, nchunks, DP, DP),
     nent (BH, nchunks, DP), ment (BH, nchunks). Adds one to
     `run_states_kernel.launches`."""
-    result = _forward_launch("mlstm_fwd_states", q, k, v, a, s, cm, eps, dh, states=True)
+    result = _forward_launch("mlstm_fwd_states", q, k, v, a, s, cm, eps, dh, seq_len,
+                             states=True)
     run_states_kernel.launches += 1
     return result
 
 
 def run_bwd_kernel(q, k, v, g, a, s, cm, cent, nent, ment, eps: float = MLSTM_EPS, *,
-                   dh: int):
+                   dh: int, seq_len=None):
     """One call of `mlstm_bwd` (its launches) on prepared CUDA tensors and
-    the states kernel's entry states (dh the true head width).
-    Returns dq, dk, dv (BH, Sp, DP) and ds, dax (BH, nchunks, L). Adds one
-    to `run_bwd_kernel.launches`."""
-    BH, Sp, DP, dh, L = _prepared_dims("mlstm_bwd", q, a, dh)
+    the states kernel's entry states (dh the true head width; seq_len the
+    true length, default Sp, with g zero past it). Returns dq, dk, dv (BH,
+    Sp, DP) and ds, dax (BH, nchunks, L). Adds one to
+    `run_bwd_kernel.launches`."""
+    BH, Sp, DP, L, rows_last = _prepared_dims("mlstm_bwd", q, a, dh, seq_len)
     nchunks = Sp // L
     ptrs, dev = _pointers("mlstm_bwd", (q, k, v, g, a, s, cm, cent, nent, ment),
                           (q.shape,) * 4 + ((BH, nchunks, L),) * 3
                           + ((BH, nchunks, DP, DP), (BH, nchunks, DP), (BH, nchunks)))
+    sizes, plan = _plan_sizes(BH, Sp, L, DP, dh, rows_last)
     # three allocations, not twenty: the outputs by shape, and one workspace
     # for each chunk's readout adjoints of its entry state and its incoming
-    # carry, each row's denominator and d rowsum, and the wide path's
-    # attention, dqk, numerator and row and column scalars
+    # carry, each row's denominator and d rowsum, and the wide path's row
+    # and column scalars
     grads, chunk_grads = q.new_empty((3, *q.shape)), a.new_empty((2, *a.shape))
     n_c, n_n, n_a, n_m = BH * nchunks * DP * DP, BH * nchunks * DP, BH * Sp, BH * nchunks
-    n_att, n_num, n_row = ((BH * nchunks * L * L, BH * Sp * DP, n_a) if _wide(DP)
-                           else (0, 0, 0))
-    work, pieces = _workspace(q, (n_c, n_c, n_n, n_n, n_a, n_a, n_m, n_att, n_att, n_num,
-                                  n_row, n_row, n_row, n_row, n_row * (DP // WIDE_TILE)))
+    n_row, n_span = (n_a, n_m * -(-DP * DP // FINAL_SPAN)) if _wide(DP) else (0, 0)
+    work, offsets = _workspace(q, (n_c, n_c, n_n, n_n, n_a, n_a, n_m, n_row, n_row,
+                                   n_row * plan.col_groups, n_span, 2 * n_row * plan.col_groups,
+                                   n_row, n_row))
+    base = work.data_ptr()
+    dc_read, dc_carry, dn_read, dn_carry, denom, drow, dm_read, *wide = (
+        base + 4 * o for o in offsets)
     dq, dk, dv = grads.unbind(0)
     ds, dax = chunk_grads.unbind(0)
-    dc_read, dc_carry, dn_read, dn_carry, denom, drow, dm_read, *wide = pieces
     _launch("mlstm_bwd_launch",
             (*ptrs, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ds.data_ptr(), dax.data_ptr(),
              denom, drow, dc_read, dn_read, dm_read, dc_carry, dn_carry, *wide),
-            dev, BH, Sp, L, DP, dh, eps)
+            sizes, eps, dev)
     run_bwd_kernel.launches += 1
     return dq, dk, dv, ds, dax
 
@@ -393,7 +476,7 @@ def run_bwd_kernel(q, k, v, g, a, s, cm, cent, nent, ment, eps: float = MLSTM_EP
 # Calls of each wrapper since its count was last set to 0 (read by
 # chip_smoke.py). One call enqueues three CUDA kernels on the narrow path
 # (chunk states, carry scan and readout for the forward wrappers; rows,
-# reverse scan and columns for the backward), four (forward) or ten
+# reverse scan and columns for the backward), three (forward) or seven
 # (backward) on the wide path.
 run_kernel.launches = 0
 run_states_kernel.launches = 0
@@ -428,10 +511,12 @@ def mlstm_backward(q, k, v, igate, fgate, g, chunk_size: int = 128,
     prepared = prepare(q, k, v, igate, fgate, chunk_size)
     qf, kf, vf, a, s, cm = prepared
     Sp, DP = qf.shape[1:]
-    gf = F.pad(g.to(torch.float32), (0, DP - DH, 0, Sp - S)).reshape(B * NH, Sp, DP).contiguous()
+    gf = _aligned(F.pad(g.to(torch.float32), (0, DP - DH, 0, Sp - S))
+                  .reshape(B * NH, Sp, DP).contiguous())
     if q.device.type == "cuda":
-        _, cent, nent, ment = run_states_kernel(*prepared, eps, dh=DH)
-        grads = run_bwd_kernel(qf, kf, vf, gf, a, s, cm, cent, nent, ment, eps, dh=DH)
+        _, cent, nent, ment = run_states_kernel(*prepared, eps, dh=DH, seq_len=S)
+        grads = run_bwd_kernel(qf, kf, vf, gf, a, s, cm, cent, nent, ment, eps, dh=DH,
+                               seq_len=S)
     else:
         _, cent, nent, ment = mlstm_forward_states_reference(*prepared, eps, dh=DH)
         grads = mlstm_backward_reference(qf, kf, vf, gf, a, s, cm, cent, nent, ment, eps,
@@ -453,7 +538,7 @@ class MLSTMFunction(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, igate, fgate)
         ctx.chunk_size, ctx.eps, ctx.bwd_mode = chunk_size, eps, bwd_mode
         B, NH, S, DH = q.shape
-        out = run_kernel(*prepare(q, k, v, igate, fgate, chunk_size), eps, dh=DH)
+        out = run_kernel(*prepare(q, k, v, igate, fgate, chunk_size), eps, dh=DH, seq_len=S)
         return out.reshape(B, NH, -1, out.shape[-1])[:, :, :S, :DH]
 
     @staticmethod
