@@ -13,7 +13,10 @@ plain twin):
              ptxas's registers, shared memory and spills for each CUDA kernel
  3. kernel   each kernel (mlstm_fwd, mlstm_fwd_states, mlstm_bwd; one call of
              each is three CUDA launches, seven for mlstm_bwd on the wide
-             path) against its plain PyTorch twin at the shapes the main
+             path; on the narrow path (DH <= 16) the rows walked in groups
+             of four by eight lanes, the scans one warp per 32 elements of
+             a head's carry, the backward's carried dm in its columns
+             launch) against its plain PyTorch twin at the shapes the main
              paths give it, with the true length S as the wrappers take it
              (the cotangent zero past S, as mlstm_backward pads it), and on
              the edge cases (one chunk, padding, extreme gates, the e^{-m}
@@ -24,8 +27,10 @@ plain twin):
              chunk with S < L) and at the wide path's edges (a last chunk's
              true rows ending inside a row tile, one chunk of 65 rows, DH
              512, B*NH 1 at DH 384, the e^{-m} branch at DH 384), with the
-             wide plan's blocks per launch and its time beside the twin's
-             and its bound; mlstm_fwd's h bitwise equal to
+             wide plan's blocks per launch (the narrow walk's most keys a
+             lane) and its time beside the twin's and its bound, the narrow
+             kernels' device us per CUDA launch (torch.profiler) at the
+             timed narrow cases; mlstm_fwd's h bitwise equal to
              mlstm_fwd_states'; then the
              differentiable wrapper's h and five gradients against the plain
              chunkwise scan and its autograd at S 2000 and 6144 (the twins
@@ -312,6 +317,28 @@ def device_ms(fn, calls: int = 20, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
+def launch_us(fn, calls: int = 10) -> dict:
+    """Device microseconds per call of each CUDA kernel that fn launches, in
+    the order of their first launch (torch.profiler over `calls` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for event in prof.events():
+        if event.device_type.name == "CUDA":
+            key = event.name.replace("(anonymous namespace)::", "").replace("mlstm_wide::", "")
+            key = re.sub(r"<\((\w+)\)(\d+)>", r"<\1 \2>", key)  # <(Outer)0> -> <Outer 0>
+            key = key.replace("void ", "").split("(")[0]
+            times[key] = times.get(key, 0.0) + event.device_time / calls
+    return times
+
+
 def ptxas_report(log: str):
     """One line per CUDA kernel from nvcc's -Xptxas -v log: its short name,
     registers, shared memory, stack frame and spills."""
@@ -485,6 +512,11 @@ def check_kernels(dev):
             print(f"  {label}: wide plan row tile {plan.row_tile}, column groups "
                   f"{plan.col_groups}, blocks " + ", ".join(f"{n} {b}" for n, b in
                                                            plan.blocks.items()), flush=True)
+        else:  # the balanced walk of the readout, rows and columns launches
+            pairs = max(len(lane) for lane in mc.narrow_plan(L))
+            print(f"  {label}: narrow walk {mc.NARROW_SPLIT} lanes to a group of four rows, at "
+                  f"most {pairs} (row, key) pairs a lane (L {L}), {BH * (Sp // L)} blocks a "
+                  f"launch", flush=True)
         with torch.inference_mode():
             out = mc.run_kernel(*prepared, dh=DH, seq_len=S)
             ref_states = mc.mlstm_forward_states_reference(*prepared, dh=DH)
@@ -546,6 +578,11 @@ def check_kernels(dev):
                   f"{dev_ms[name]:.4f} ms) | twin {plain_ms[name]:.4f} ms | bound "
                   f"{bound:.5f} ms by {by} ({costs[name][0]} B, {costs[name][1]} flop)",
                   flush=True)
+            if label in TIMED_CASES and not wide:  # the narrow kernels, launch by launch
+                with torch.inference_mode():
+                    per = launch_us(calls[name])
+                print("      " + ", ".join(f"{k} {us:.1f} us" for k, us in per.items()),
+                      flush=True)
             timing = {"ms": ms[name], "device_ms": dev_ms[name], "plain_ms": plain_ms[name],
                       "bound_ms": bound, "bound_by": by}
             if label == "S4096":  # the shape the main paths give it (128^3 windows)

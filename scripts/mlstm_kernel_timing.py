@@ -24,11 +24,15 @@ the checkout at --root (default: this one), so that two versions, e.g. an
 unpacked parent commit and this tree, are timed the same way on one card
 (run them in turns: parent, this, this, parent). A checkout whose wrappers
 take the true length (`seq_len`) gets it, as `mlstm_forward` passes it; the
-cotangent is zero past S for every checkout. --save writes the S 4096
-case's outputs (h, the entry states, the five gradients) to a file;
---compare says whether two such files hold the same bits and exits 1 if
-not. Needs a CUDA card (not for --compare). Prints the card's name and
-power limit first and, last, one JSON object with the numbers.
+cotangent is zero past S for every checkout. --save writes every case's
+outputs (h, the entry states, the five gradients, keyed "<case>/<name>") to
+a file; --compare says, for each key of two such files, whether it holds
+the same bits and its max|d| (two versions whose sums run in another order
+differ within the bounds), and exits 1 unless all are the same. --profile
+adds each CUDA kernel's device µs per call (`chip_smoke.launch_us`) and
+ptxas's registers and spills. Needs a CUDA card (not for --compare).
+Prints the card's name and power limit first and, last, one JSON object
+with the numbers.
 """
 from __future__ import annotations
 
@@ -36,12 +40,10 @@ import argparse
 import inspect
 import json
 import os
-import re
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SAVED_CASE = "S4096"
 
 
 def compare(path_a: str, path_b: str) -> int:
@@ -49,34 +51,13 @@ def compare(path_a: str, path_b: str) -> int:
 
     a, b = torch.load(path_a), torch.load(path_b)
     same = sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+    diffs = {}
     for key in sorted(a):
         equal = key in b and torch.equal(a[key], b[key])
-        print(f"  {key}: {'bitwise equal' if equal else 'DIFFERENT'}")
-    print(json.dumps({"compare": [path_a, path_b], "bitwise_equal": same}))
+        diffs[key] = float((a[key] - b[key]).abs().max()) if key in b else None
+        print(f"  {key}: {'bitwise equal' if equal else 'DIFFERENT'}, max|d| {diffs[key]}")
+    print(json.dumps({"compare": [path_a, path_b], "bitwise_equal": same, "max_abs_diff": diffs}))
     return 0 if same else 1
-
-
-def profile(fn, calls: int = 10) -> dict:
-    """Device microseconds per call of each CUDA kernel that fn launches, in
-    the order of their first launch (torch.profiler over `calls` calls)."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
-    fn()
-    torch.cuda.synchronize()
-    with trace(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for event in prof.events():
-        if event.device_type.name == "CUDA":
-            key = event.name.replace("(anonymous namespace)::", "").replace("mlstm_wide::", "")
-            key = re.sub(r"<\((\w+)\)(\d+)>", r"<\1 \2>", key)  # <(Outer)0> -> <Outer 0>
-            key = key.replace("void ", "").split("(")[0]
-            times[key] = times.get(key, 0.0) + event.device_time / calls
-    return times
 
 
 def main():
@@ -86,7 +67,7 @@ def main():
     parser.add_argument("--cases", nargs="+", default=None,
                         help="labels of chip_smoke.KERNEL_CASES (default: its TIMED_CASES)")
     parser.add_argument("--save", default=None,
-                        help=f"write the {SAVED_CASE} case's outputs here (torch.save)")
+                        help="write every case's outputs here (torch.save)")
     parser.add_argument("--compare", nargs=2, default=None, metavar=("A", "B"))
     parser.add_argument("--profile", action="store_true",
                         help="also print each CUDA kernel's device time per call "
@@ -151,12 +132,13 @@ def main():
             torch.cuda.synchronize()
             refs = {"mlstm_fwd": (ref_states[0],), "mlstm_fwd_states": ref_states[:3],
                     "mlstm_bwd": ref_grads}
-            if label == SAVED_CASE:
-                saved = {"h": outs["mlstm_fwd"], "states_h": outs["mlstm_fwd_states"][0],
-                         "cent": outs["mlstm_fwd_states"][1],
-                         "nent": outs["mlstm_fwd_states"][2],
-                         "ment": outs["mlstm_fwd_states"][3],
-                         **dict(zip(("dq", "dk", "dv", "ds", "dax"), outs["mlstm_bwd"]))}
+            if args.save:
+                outputs = {"h": outs["mlstm_fwd"], "states_h": outs["mlstm_fwd_states"][0],
+                           "cent": outs["mlstm_fwd_states"][1],
+                           "nent": outs["mlstm_fwd_states"][2],
+                           "ment": outs["mlstm_fwd_states"][3],
+                           **dict(zip(("dq", "dk", "dv", "ds", "dax"), outs["mlstm_bwd"]))}
+                saved.update({f"{label}/{key}": t.cpu() for key, t in outputs.items()})
             costs = {"mlstm_fwd": cs.mlstm_cost(BH, S, DH, L),
                      "mlstm_fwd_states": cs.mlstm_cost(BH, S, DH, L, states=True),
                      "mlstm_bwd": cs.mlstm_bwd_cost(BH, S, DH, L)}
@@ -168,7 +150,7 @@ def main():
                        "bound_ms": bound, "bound_by": by, "scaled_err": err}
                 row["over_bound"] = row["device_ms"] / bound
                 if args.profile:
-                    row["launches_us"] = profile(fn)
+                    row["launches_us"] = cs.launch_us(fn)
                 result[f"{name}_{label}"] = row
                 print(f"  {name} {label}: one call {row['call_ms']:.4f} ms, device "
                       f"{row['device_ms']:.4f} ms, bound {bound:.5f} ms by {by} "
@@ -179,9 +161,7 @@ def main():
         del outs, ref_states, ref_grads, bwd_args, prepared
         torch.cuda.empty_cache()
     if args.save:
-        if not saved:
-            cs.fail(f"--save needs the {SAVED_CASE} case in --cases")
-        torch.save({k: t.cpu() for k, t in saved.items()}, args.save)
+        torch.save(saved, args.save)
     print(json.dumps({"root": root, "nvidia_smi": smi, "seq_len": takes_length,
                       "kernels": result}))
 

@@ -58,11 +58,12 @@ def _scaled_err(out, ref):
 
 
 # (1, 4, 100) is one chunk (L = S); (2, 4, 6144) is 384 blocks, more than one wave;
-# (1, 4, 32768, 8) is the ViL decoder of U_HVEDConvXLSTMNet3D at 128^3, 256 chunks
+# (1, 4, 32768, 8) and (1, 4, 49152, 8) are the ViL decoder of
+# U_HVEDConvXLSTMNet3D at 128^3 and 128x192x128, 256 and 384 chunks
 @pytest.mark.parametrize("B,NH,S,DH,L", [(1, 4, 4096, 16, 128), (1, 4, 6144, 16, 128),
                                          (2, 4, 1000, 8, 128), (1, 2, 97, 16, 32),
                                          (1, 4, 100, 16, 128), (2, 4, 6144, 16, 128),
-                                         (1, 4, 32768, 8, 128)])
+                                         (1, 4, 32768, 8, 128), (1, 4, 49152, 8, 128)])
 def test_kernel_matches_twin(dev, B, NH, S, DH, L):
     prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH), L)
     out = mlstm_cuda.run_kernel(*prepared, dh=DH)
@@ -93,7 +94,8 @@ def test_mlstm_forward_matches_chunkwise_and_counts(dev):
                                               (2, 2, 97, 16, 32, "realistic"),
                                               (1, 4, 100, 16, 128, "realistic"),
                                               (2, 4, 6144, 16, 128, "realistic"),
-                                              (1, 4, 32768, 8, 128, "realistic")])
+                                              (1, 4, 32768, 8, 128, "realistic"),
+                                              (1, 4, 49152, 8, 128, "realistic")])
 def test_states_and_backward_kernels_match_twins(dev, B, NH, S, DH, L, case):
     prepared = mlstm_cuda.prepare(*_inputs(dev, B, NH, S, DH, case=case), L)
     states = mlstm_cuda.run_states_kernel(*prepared, dh=DH)
@@ -111,6 +113,23 @@ def test_states_and_backward_kernels_match_twins(dev, B, NH, S, DH, L, case):
     for got, want in zip(grads, grads_ref):
         assert torch.isfinite(got).all()
         assert _scaled_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("S,DH", [(4096, 16), (32768, 8), (49152, 8)])
+def test_narrow_kernels_are_deterministic(dev, S, DH):
+    """Two calls of each narrow kernel on the same inputs give the same bits:
+    every sum runs in one block in a fixed order, no atomics."""
+    prepared = mlstm_cuda.prepare(*_inputs(dev, 1, 4, S, DH, seed=5), 128)
+    first = mlstm_cuda.run_states_kernel(*prepared, dh=DH)
+    h = mlstm_cuda.run_kernel(*prepared, dh=DH)
+    g = torch.randn_like(prepared[0])
+    args = (*prepared[:3], g, *prepared[3:], *first[1:])
+    grads = mlstm_cuda.run_bwd_kernel(*args, dh=DH)
+    again = (mlstm_cuda.run_kernel(*prepared, dh=DH),
+             *mlstm_cuda.run_states_kernel(*prepared, dh=DH),
+             *mlstm_cuda.run_bwd_kernel(*args, dh=DH))
+    for got, want in zip(again, (h, *first, *grads)):
+        assert torch.equal(got, want)
 
 
 # the wide path's edges: a last chunk whose true rows end inside a row tile

@@ -16,11 +16,11 @@ from xlstm_hved_tpu.ops.mlstm import mlstm_chunkwise as j_chunkwise
 from xlstm_hved_tpu.ops.mlstm_pallas import _m_entry_chain, _pallas_forward, _prep, mlstm_pallas
 from xlstm_hved_torch.nn.vil import MatrixLSTMCell
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise, mlstm_quadratic
-from xlstm_hved_torch.ops.mlstm_cuda import (KEY_TILE, MAX_DH, SMS, column_groups,
-                                             mlstm_backward, mlstm_forward,
+from xlstm_hved_torch.ops.mlstm_cuda import (KEY_TILE, MAX_CHUNK, MAX_DH, NARROW_SPLIT, SMS,
+                                             column_groups, mlstm_backward, mlstm_forward,
                                              mlstm_forward_reference,
-                                             mlstm_forward_states_reference, padded_width,
-                                             prepare, run_bwd_kernel, run_kernel,
+                                             mlstm_forward_states_reference, narrow_plan,
+                                             padded_width, prepare, run_bwd_kernel, run_kernel,
                                              run_states_kernel, wide_plan)
 
 ATOL, RTOL = 2e-4, 1e-3
@@ -208,6 +208,32 @@ def test_wide_plan_at_the_timed_cases():
     assert got == [(64, 1), (32, 2), (32, 1), (64, 1), (32, 6)]
 
 
+@pytest.mark.parametrize("columns", [False, True])
+@pytest.mark.parametrize("L", [MAX_CHUNK, 127, 100, 33, 16, 7, 5, 2, 1])
+def test_narrow_plan_walks_every_causal_pair_once(L, columns):
+    """The narrow kernels' balanced walk (csrc/mlstm_narrow.cuh, with the
+    lane count its header sets): every causal (row t, key j <= t) pair, or
+    in the columns (key p, row t >= p), in exactly one lane, and no lane
+    taking more than two pairs (its slot's two rows) at each of its
+    ceil((L + 2) / NARROW_SPLIT) positions, nor more than ceil((L + 1) / 2)
+    pairs."""
+    import re
+    from pathlib import Path
+
+    header = (Path(__file__).resolve().parent.parent / "xlstm_hved_torch" / "csrc"
+              / "mlstm_narrow.cuh").read_text()
+    assert int(re.search(r"constexpr int kSplit = (\d+);", header).group(1)) == NARROW_SPLIT
+    plan = narrow_plan(L, columns)
+    walked = [pair for lane in plan for pair in lane]
+    if columns:
+        want = {(p, t) for p in range(L) for t in range(p, L)}
+    else:
+        want = {(t, j) for t in range(L) for j in range(t + 1)}
+    assert len(walked) == len(set(walked)) == len(want) and set(walked) == want
+    longest = max(len(lane) for lane in plan)
+    assert longest <= 2 * -(-(L + 2) // NARROW_SPLIT) and longest <= -(-(L + 1) // 2)
+
+
 @pytest.mark.parametrize("dh,width", [(1, 8), (6, 8), (8, 8), (9, 16), (16, 16), (17, 32),
                                       (45, 64), (96, 96), (130, 160), (384, 384),
                                       (MAX_DH, MAX_DH)])
@@ -357,6 +383,7 @@ def test_states_twin_matches_pallas_save_states_wide(S, DH):
     (1, 2, 64, 8, 16, "denominator", 3e-4, 2e-3),     # the e^{-m} branch
     (1, 2, 50, 16, 64, "realistic", 2e-4, 1e-3),      # one chunk
     (1, 2, 1000, 8, 16, "realistic", 2e-4, 1e-3),     # 63 chunks
+    (1, 2, 2100, 8, 16, "realistic", 2e-4, 1e-3),     # 132 chunks: the carried dm per chunk
     (2, 2, 96, 16, 16, "padding_tail", 2e-4, 1e-3),
     (1, 2, 64, 16, 16, "underflow", 2e-4, 1e-3),
     (2, 3, 97, 16, 32, "denominator", 3e-4, 2e-3),

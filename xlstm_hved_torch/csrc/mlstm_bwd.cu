@@ -15,37 +15,46 @@
 // file). The Pallas kernel walks the chunks of a head in reverse, carrying
 // the adjoints (dC, dn, dm) of the entry state. Only the dC, dn carry is
 // sequential, so this runs in three launches:
-//  1. rows, one block per (head, chunk), two threads per readout row t (keys
-//     split by parity, as in mlstm_fwd.cu): recompute num_t, rowsum_t and the
-//     denominator with the forward kernel's operations, in its order (the
-//     loop bound j <= t, the -60 clamp, the act = |rowsum| >= e^{-m}
-//     branch); then g/denom, d rowsum, dax_t and, in a second pass over the
-//     keys, dq_t, which is complete here. Each row's denominator and
-//     d rowsum go to a (bh, Sp) workspace, and the chunk's readout adjoints
-//     of its entry state, dC_read, dn_read, dm_read, to a per-chunk one;
-//  2. reverse scan, one block per head, one thread per element of dC: from
-//     a zero carry at the last chunk, store each chunk's incoming carry (the
-//     adjoint of its exit state), then dC = e_dec dC + dC_read (dn likewise),
-//     with e_dec = e^{m* - M'}. Then, one warp per chunk c >= 1, the carried
-//     dm = e_dec (sum dC * C* + sum dn * n*) + dm_read of chunk c lands on
-//     dax[c-1, L-1] (m*' = a_{L-1} + M');
-//  3. columns, one block per (head, chunk), two threads per key p (rows
-//     t >= p split by parity): recompute attn[t, p] and dattn[t, p] =
-//     (g_t / denom_t).v_p + drow_t from the stored row scalars, sum dk_p,
-//     dv_p and ds_p, and add the state update's adjoint of key p under the
-//     chunk's incoming carry.
+//  1. rows, one block per (head, chunk), on the forward readout's walk
+//     (mlstm_narrow.cuh: eight lanes to a group of four rows, every eighth
+//     key to a lane), one row at a time: recompute each score with the
+//     forward's operations on the forward's lanes, so rowsum_t and the
+//     denominator are the forward's bits (the loop bound j <= t, the -60
+//     clamp, the act = |rowsum| >= e^{-m} branch); on the same pass over
+//     the keys, g.num's key part and dq's two key sums, sum_j (g_t.v_j)
+//     e^{s_j - M_t} k_j and sum_j e^{s_j - M_t} k_j, so that once d rowsum
+//     is known dq_t is (the first) / denom_t + d rowsum_t (the second) plus
+//     the entry state's term. Each row's denominator and d rowsum go to a
+//     (bh, Sp) workspace, and the chunk's readout adjoints of its entry
+//     state, dC_read, dn_read (2 x 2 register tiles, outer_sum), dm_read,
+//     to a per-chunk one;
+//  2. reverse scan, one warp per 32 elements of (dC, dn) of a head: per
+//     segment of 256 chunks from the last, the decays e_dec = e^{m* - M'}
+//     of all its chunks at once, then from a zero carry at the last chunk
+//     store each chunk's incoming carry (the adjoint of its exit state) and
+//     dC = fmaf(e_dec, dC, dC_read) (dn likewise);
+//  3. columns, one block per (head, chunk), the readout's walk mirrored
+//     (each lane reads every eighth row once for two adjacent keys):
+//     recompute attn[t, p] and dattn[t, p] = (g_t / denom_t).v_p + drow_t
+//     from the stored row scalars, sum dk_p, dv_p and ds_p, and add the
+//     state update's adjoint of key p under the chunk's incoming carry.
+//     Then one warp adds the carried dm of the chunk's entry m*, e_dec (sum
+//     dC * C* + sum dn * n*) + dm_read, to dax at the previous chunk's last
+//     row (m*' = a_{L-1} + M'): a chunk-parallel grid, one writer per
+//     element, after launch 1's.
 // No L x L buffer: the column phase recomputes attn and dattn. No atomics
 // and no sum across blocks: each sum stays in one block, in a fixed order,
-// so the gradients are deterministic.
+// so the gradients are deterministic. The scan and the columns are
+// programmatic dependents of the launch before them.
 //
 // Precision (narrow kernels): IEEE fp32 FMAs and full-precision expf, no
 // fast math and no tensor cores, for the reason given in mlstm_fwd.cu. What
-// bounds the narrow path: at the flagship's S = 4096 the work is about
-// 0.26 GFLOP and 7.8 MB (3.9 us at the card's fp32 rate); latency bounds
-// each phase. Phases 1 and 3 run B*NH x S/L blocks, one wave on the 132
-// SMs, and the rows with the most keys (or the keys with the most rows) set
-// their time; the scan is a chain of nchunks FMAs, its inputs loaded
-// kScanAhead chunks ahead. Splitting the row and column phases into
+// bounds the narrow path (PERF.md): at the flagship's S = 4096 the work is
+// about 0.26 GFLOP and 7.8 MB (3.9 us at the card's fp32 rate), and latency
+// bounds each launch (one wave of 128 blocks); at S 32768-49152 (DH 8) the
+// rows and columns are bound by their instructions per causal pair (four
+// DH-long FMA chains and an expf) and their lanes' sums, the scan by one
+// dependent fmaf a chunk. Splitting the row and column phases into
 // separate kernels keeps each under the register file's 255 a thread at
 // DH 16.
 //
@@ -67,22 +76,29 @@
 
 #include <cuda_runtime.h>
 
+#include "mlstm_narrow.cuh"
 #include "mlstm_wide.cuh"
 
 namespace {
 
 constexpr int kMaxChunk = 128;
-constexpr int kThreads = 256;  // two threads per row (rows) or key (columns)
+constexpr int kThreads = 256;  // the wide path's blocks
 constexpr int kWarps = kThreads / 32;
-constexpr int kScanAhead = 8;  // chunks whose inputs the scan loads at once
+constexpr int kScanAhead = 8;  // chunks whose inputs the wide scan loads at once
 constexpr int kMaxGridY = 65535;
 
+using mlstm_narrow::load_row;
+using mlstm_narrow::Slot;
+using mlstm_narrow::Width;
 using mlstm_wide::block_sum;
 
-// Phase 1. Grid (bh, nchunks). Writes dq (bh, Sp, DH); dax, denom and drow
-// (bh, Sp); dcr (bh, nchunks, DH, DH), dnr (bh, nchunks, DH), dmr (bh, nchunks).
+// Phase 1. Grid (bh, nchunks), mlstm_narrow::kThreads, each group of kSplit
+// lanes walking its four rows one at a time, on the forward readout's keys.
+// Writes dq (bh, Sp, DH); dax, denom and drow
+// (bh, Sp); dcr (bh, nchunks, DH, DH), dnr (bh, nchunks, DH), dmr (bh,
+// nchunks).
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mlstm_narrow::kThreads)
 mlstm_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ g,
                       const float* __restrict__ a, const float* __restrict__ s,
@@ -92,321 +108,374 @@ mlstm_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float* __restrict__ denom_out, float* __restrict__ drow_out,
                       float* __restrict__ dcr, float* __restrict__ dnr,
                       float* __restrict__ dmr, int chunk, float scale, float eps) {
-  static_assert(DH * DH <= kThreads, "one thread per element of dC_read");
-  __shared__ float q_s[kMaxChunk][DH + 1];  // q / sqrt(DH)
-  __shared__ float k_s[kMaxChunk][DH + 1];
-  __shared__ float v_s[kMaxChunk][DH + 1];
-  __shared__ float g_s[kMaxChunk][DH + 1];  // g, then g / denom after the rows
+  using namespace mlstm_narrow;
+  constexpr int kLd = Width<DH>::kLd, kCols = Width<DH>::kCols;
+  static_assert(Outer<DH>::kRedFloats <= kMaxChunk * kLd, "outer_sum's parts fit in v_s");
+  __shared__ __align__(16) float q_s[kMaxChunk * kLd];  // q / sqrt(DH)
+  __shared__ __align__(16) float k_s[kMaxChunk * kLd];
+  __shared__ __align__(16) float v_s[kMaxChunk * kLd];  // then outer_sum's parts
+  __shared__ __align__(16) float g_s[kMaxChunk * kLd];  // g, then g / denom
+  __shared__ __align__(16) float c_s[DH * kLd];         // entry C* of the chunk
   __shared__ float s_s[kMaxChunk];
-  __shared__ float inter_s[kMaxChunk];      // e^{m* - M_t}
-  __shared__ float drow_s[kMaxChunk];       // d rowsum_t
-  __shared__ float c_s[DH][DH + 1];         // entry C* of the chunk
+  __shared__ float inter_s[kMaxChunk];                  // e^{m* - M_t}
+  __shared__ float drow_s[kMaxChunk];                   // d rowsum_t
+  __shared__ float dm_s[kMaxChunk];                     // the rows' parts of dm_read
+  __shared__ float mrow_s[kMaxChunk];                   // M_t = max(m*, cm_t)
+  __shared__ float a_s[kMaxChunk];
   __shared__ float n_s[DH];
-  __shared__ float red_s[kWarps];
 
+  griddep_launch_dependents();  // the scan's decays need nothing of this kernel
   const int tid = threadIdx.x;
-  const int lane_row = tid >> 1;
-  const int half = tid & 1;
   const size_t cidx = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
   const size_t off = cidx * chunk * DH;
   const size_t goff = cidx * chunk;
-
-  for (int e = tid; e < chunk * DH; e += kThreads) {
-    const int r = e / DH, d = e % DH;
-    q_s[r][d] = q[off + e] * scale;
-    k_s[r][d] = k[off + e];
-    v_s[r][d] = v[off + e];
-    g_s[r][d] = g[off + e];
-  }
-  for (int e = tid; e < chunk; e += kThreads) s_s[e] = s[goff + e];
-  for (int e = tid; e < DH * DH; e += kThreads) c_s[e / DH][e % DH] = cent[cidx * DH * DH + e];
-  for (int e = tid; e < DH; e += kThreads) n_s[e] = nent[cidx * DH + e];
+  stage_rows<DH>(q_s, q + off, chunk);
+  stage_rows<DH>(k_s, k + off, chunk);
+  stage_rows<DH>(v_s, v + off, chunk);
+  stage_rows<DH>(g_s, g + off, chunk);
+  stage_rows<DH>(c_s, cent + cidx * DH * DH, DH);
+  mlstm_wide::cp_async_commit();
   const float m_in = ment[cidx];
+  for (int e = tid; e < chunk; e += mlstm_narrow::kThreads) {
+    s_s[e] = s[goff + e];
+    mrow_s[e] = fmaxf(cm[goff + e], m_in);
+    a_s[e] = a[goff + e];
+  }
+  if (tid < DH) n_s[tid] = nent[cidx * DH + tid];
+  cp_async_wait<0>();
+  __syncthreads();
+  scale_rows<DH>(q_s, chunk, scale);
   __syncthreads();
 
-  // Every thread runs the row code so that the pair shuffles see a full
-  // warp; rows past the chunk sum nothing and store nothing.
-  float dm_read_part = 0.0f;
-  {
-    const bool live = lane_row < chunk;
-    const int t = live ? lane_row : 0;
-    float qs[DH];
+  const int col0 = first_col<DH>();
+  float go_own[4][kCols];  // g_t / denom_t of this lane's columns, each of its rows
 #pragma unroll
-    for (int d = 0; d < DH; ++d) qs[d] = q_s[t][d];
-    const float m_row = fmaxf(cm[goff + t], m_in);
-    float num[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) num[d] = 0.0f;
-    float rowsum = 0.0f;
-    const int last = live ? t : -1;
-    for (int j = half; j <= last; j += 2) {  // as mlstm_fwd.cu
-      const float dec = expf(s_s[j] - m_row);
-      float qk0 = 0.0f, qk1 = 0.0f;
-#pragma unroll
-      for (int d = 0; d < DH; d += 2) {
-        qk0 = fmaf(qs[d], k_s[j][d], qk0);
-        qk1 = fmaf(qs[d + 1], k_s[j][d + 1], qk1);
-      }
-      const float att = (qk0 + qk1) * dec;
-      rowsum += att;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) num[d] = fmaf(att, v_s[j][d], num[d]);
-    }
-    rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-#pragma unroll
-    for (int d = 0; d < DH; ++d) num[d] += __shfl_xor_sync(0xffffffffu, num[d], 1);
-
-    const float inter = expf(m_in - m_row);
-    float qn = 0.0f;
-#pragma unroll
-    for (int i = 0; i < DH; ++i) qn = fmaf(qs[i], n_s[i], qn);
-    rowsum = fmaf(inter, qn, rowsum);
-    const float e_neg = expf(-fmaxf(a[goff + t] + m_row, -60.0f));
-    const float denom = fmaxf(fabsf(rowsum), e_neg) + eps;
-    const bool act = fabsf(rowsum) >= e_neg;
-
-    float go[DH];
-    float gnum = 0.0f, dinter = 0.0f;
+  for (int q4 = 0; q4 < 4; ++q4) {  // slot 0's rows hi, lo, then slot 1's
+    const Slot w = slot(chunk, q4 / 2);
+    const bool live = q4 % 2 == 0 ? w.live_hi : w.live_lo;
+    const int t = q4 % 2 == 0 ? w.hi : w.lo;
+    float qs[DH], gt[DH];
 #pragma unroll
     for (int d = 0; d < DH; ++d) {
+      qs[d] = q_s[t * kLd + d];
+      gt[d] = g_s[t * kLd + d];
+    }
+    const float m_row = mrow_s[t];
+    float keys, g_num, a[DH], b[DH];  // the lanes' parts of g.num's key sum and of dq's
+    row_grad_pass<DH>(qs, gt, m_row, w.first, live ? t : -1, k_s, v_s, s_s, keys, g_num, a, b);
+    const RowScalars r = row_denominator<DH>(qs, n_s, m_in, m_row, a_s[t], keys, eps);
+    const bool act = fabsf(r.rowsum) >= r.e_neg;
+
+    // g.num_t = e^{m* - M_t} g.(q_t C* / sqrt(DH)) + g.(keys' num_t), and d inter,
+    // over this lane's columns, then the lanes' sums
+    float g_qc = 0.0f, dinter = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
       float qc = 0.0f;
 #pragma unroll
-      for (int i = 0; i < DH; ++i) qc = fmaf(qs[i], c_s[i][d], qc);
-      go[d] = g_s[t][d];
-      gnum = fmaf(go[d], fmaf(inter, qc, num[d]), gnum);
-      go[d] = go[d] / denom;
-      dinter = fmaf(qc, go[d], dinter);
+      for (int i = 0; i < DH; ++i) qc = fmaf(qs[i], c_s[i * kLd + col0 + c], qc);
+      g_qc = fmaf(g_s[t * kLd + col0 + c], qc, g_qc);
+      go_own[q4][c] = __fdiv_rn(g_s[t * kLd + col0 + c], r.denom);
+      dinter = fmaf(qc, go_own[q4][c], dinter);
     }
-    const float ddenom = -gnum / (denom * denom);
+    const float gnum = fmaf(r.inter, group_sum(g_qc), group_sum(g_num));
+    dinter = group_sum(dinter);
+    const float ddenom = -gnum / __fmul_rn(r.denom, r.denom);
     // sign(rowsum) * ddenom on the live branch, sign(0) = 0 as in jnp.sign
-    const float drow = !act ? 0.0f : rowsum > 0.0f ? ddenom : rowsum < 0.0f ? -ddenom : 0.0f;
-    const float dax_t = act ? 0.0f : -e_neg * ddenom;  // the carried dm comes in phase 2
-    dinter = fmaf(drow, qn, dinter);
+    const float drow = !act ? 0.0f : r.rowsum > 0.0f ? ddenom : r.rowsum < 0.0f ? -ddenom : 0.0f;
+    const float dax_t = act ? 0.0f : -r.e_neg * ddenom;  // the carried dm comes in phase 3
+    dinter = fmaf(drow, r.qn, dinter);
 
-    // dq_t: the keys again, now with dattn = go.v_j + drow
-    float dqs[DH];
+    // dq_t = (sum_j ((g_t / denom_t).v_j + drow) e^{s_j - M_t} k_j + e^{m* - M_t}
+    // ((g_t / denom_t) C*^T + drow n*)) / sqrt(DH), the key sum as a / denom +
+    // drow b, summed over the lanes
+    const float inv = __fdiv_rn(1.0f, r.denom);
 #pragma unroll
-    for (int d = 0; d < DH; ++d) dqs[d] = 0.0f;
-    for (int j = half; j <= last; j += 2) {
-      const float dec = expf(s_s[j] - m_row);
-      float gv = 0.0f;
+    for (int d = 0; d < DH; ++d) a[d] = fmaf(drow, b[d], __fmul_rn(a[d], inv));
+    float dq_keys[kCols];
+    group_scatter<DH>(a, dq_keys);
+    if (!live) continue;
+    float dq_own[kCols];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) gv = fmaf(go[d], v_s[j][d], gv);
-      const float dqk = (gv + drow) * dec;
+    for (int c = 0; c < kCols; ++c) {
+      float gc = 0.0f;  // g_t C*^T, column col0 + c, then over the denominator
 #pragma unroll
-      for (int d = 0; d < DH; ++d) dqs[d] = fmaf(dqk, k_s[j][d], dqs[d]);
+      for (int j = 0; j < DH; ++j) gc = fmaf(gt[j], c_s[(col0 + c) * kLd + j], gc);
+      gc = __fdiv_rn(gc, r.denom);
+      dq_own[c] = __fmul_rn(scale, fmaf(r.inter, fmaf(drow, n_s[col0 + c], gc), dq_keys[c]));
     }
-#pragma unroll
-    for (int d = 0; d < DH; ++d) dqs[d] += __shfl_xor_sync(0xffffffffu, dqs[d], 1);
-
-    __syncwarp();  // both threads of the pair have read g_s[t]
-    if (live) {
-      float* dq_row = dq + off + static_cast<size_t>(t) * DH;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        if ((d >= DH / 2) != (half == 1)) continue;  // each thread stores half
-        float acc = 0.0f;
-#pragma unroll
-        for (int j = 0; j < DH; ++j) acc = fmaf(go[j], c_s[d][j], acc);
-        dq_row[d] = scale * (dqs[d] + inter * fmaf(drow, n_s[d], acc));
-        g_s[t][d] = go[d];
-      }
-      if (half == 0) {
-        inter_s[t] = inter;
-        drow_s[t] = drow;
-        dax[goff + t] = dax_t;
-        denom_out[goff + t] = denom;
-        drow_out[goff + t] = drow;
-        dm_read_part = inter * dinter;
-      }
+    store_cols<DH>(dq + off + static_cast<size_t>(t) * DH + col0, dq_own);
+    if (col0 == 0) {
+      inter_s[t] = r.inter;
+      drow_s[t] = drow;
+      dm_s[t] = __fmul_rn(r.inter, dinter);
+      dax[goff + t] = dax_t;
+      denom_out[goff + t] = r.denom;
+      drow_out[goff + t] = drow;
     }
+  }
+  __syncthreads();  // every lane has read g_s, k_s and v_s
+#pragma unroll
+  for (int q4 = 0; q4 < 4; ++q4) {
+    const Slot w = slot(chunk, q4 / 2);
+    if (!(q4 % 2 == 0 ? w.live_hi : w.live_lo)) continue;
+    const int t = q4 % 2 == 0 ? w.hi : w.lo;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) g_s[t * kLd + col0 + c] = go_own[q4][c];
   }
   __syncthreads();
 
-  // The readout's adjoints of the chunk's entry state.
-  if (tid < DH * DH) {
-    const int i = tid / DH, j = tid % DH;
-    float acc = 0.0f;
-    for (int t = 0; t < chunk; ++t) acc = fmaf(q_s[t][i] * inter_s[t], g_s[t][j], acc);
-    dcr[cidx * DH * DH + tid] = acc;
-  }
-  if (tid < DH) {
-    float acc = 0.0f;
-    for (int t = 0; t < chunk; ++t) acc = fmaf(inter_s[t] * drow_s[t], q_s[t][tid], acc);
-    dnr[cidx * DH + tid] = acc;
-  }
-  const float dm_read = block_sum(dm_read_part, red_s);
-  if (tid == 0) dmr[cidx] = dm_read;
-}
-
-// e_dec = e^{m* - M'} of chunk cidx, M' = max(m*, max s).
-__device__ __forceinline__ float entry_decay(const float* cm, const float* ment,
-                                             size_t cidx, int chunk) {
-  const float m_in = ment[cidx];
-  return expf(m_in - fmaxf(m_in, cm[(cidx + 1) * chunk - 1]));
-}
-
-// Phase 2. Grid (bh), DH * DH threads. Writes the incoming carries
-// dcc (bh, nchunks, DH, DH) and dnc (bh, nchunks, DH); adds the carried dm
-// to dax at the last row of every chunk but the last.
-template <int DH>
-__global__ void __launch_bounds__(DH * DH)
-mlstm_bwd_scan_kernel(const float* __restrict__ cm, const float* __restrict__ cent,
-                      const float* __restrict__ nent, const float* __restrict__ ment,
-                      const float* __restrict__ dcr, const float* __restrict__ dnr,
-                      const float* __restrict__ dmr, float* __restrict__ dcc,
-                      float* __restrict__ dnc, float* __restrict__ dax, int nchunks,
-                      int chunk) {
-  constexpr int kScanWarps = DH * DH / 32;
-  const int tid = threadIdx.x;  // element (tid / DH, tid % DH) of dC
-  const bool has_n = tid < DH;
-  const size_t base = static_cast<size_t>(blockIdx.x) * nchunks;
-  float dc = 0.0f, dn = 0.0f;
-  for (int c0 = nchunks - 1; c0 >= 0; c0 -= kScanAhead) {
-    float r_c[kScanAhead], r_n[kScanAhead], e_dec[kScanAhead];
-#pragma unroll
-    for (int u = 0; u < kScanAhead; ++u) {  // loads that do not wait on the carry
-      const size_t cidx = base + max(c0 - u, 0);
-      r_c[u] = dcr[cidx * DH * DH + tid];
-      r_n[u] = has_n ? dnr[cidx * DH + tid] : 0.0f;
-      e_dec[u] = entry_decay(cm, ment, cidx, chunk);
-    }
-    // No early exit, as in mlstm_fwd.cu's scan: past the first chunk the
-    // steps run on repeated inputs and store nothing.
-#pragma unroll
-    for (int u = 0; u < kScanAhead; ++u) {
-      if (c0 - u >= 0) {
-        const size_t cidx = base + c0 - u;
-        dcc[cidx * DH * DH + tid] = dc;
-        if (has_n) dnc[cidx * DH + tid] = dn;
-      }
-      dc = fmaf(e_dec[u], dc, r_c[u]);
-      dn = fmaf(e_dec[u], dn, r_n[u]);
-    }
-  }
-  __syncthreads();  // every carry stored above is visible to the block
-
-  // The adjoint of chunk c's entry m* is the carried dm of chunk c - 1.
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int c = 1 + warp; c < nchunks; c += kScanWarps) {
-    const size_t cidx = base + c;
+  // The readout's adjoints of the chunk's entry state: dC_read = sum_t
+  // (q_t / sqrt(DH) e^{m* - M_t}) (g_t / denom_t)^T, dn_read = sum_t (q_t /
+  // sqrt(DH) e^{m* - M_t}) d rowsum_t, dm_read = sum_t e^{m* - M_t} d inter_t.
+  outer_sum<DH, true>(q_s, inter_s, g_s, drow_s, chunk, v_s, dcr + cidx * DH * DH,
+                      dnr + cidx * DH);
+  if (tid < 32) {
     float part = 0.0f;
-    for (int e = lane; e < DH * DH; e += 32) {
-      part = fmaf(dcc[cidx * DH * DH + e], cent[cidx * DH * DH + e], part);
-    }
-    if (lane < DH) part = fmaf(dnc[cidx * DH + lane], nent[cidx * DH + lane], part);
-    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (lane == 0) {
-      dax[cidx * chunk - 1] += fmaf(entry_decay(cm, ment, cidx, chunk), part, dmr[cidx]);
-    }
+    for (int t = tid; t < chunk; t += 32) part = __fadd_rn(part, dm_s[t]);
+    for (int o = 16; o > 0; o >>= 1) part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+    if (tid == 0) dmr[cidx] = part;
   }
 }
 
-// Phase 3. Grid (bh, nchunks). Writes dk, dv (bh, Sp, DH) and ds (bh, Sp).
+// Phase 2. Grid (bh, ScanGroups<DH>::kGroups), one warp: 32 elements of dC
+// (or the DH of dn) of one head, from a zero carry at the last chunk. Per
+// segment of kScanSeg chunks, from the last: the decays e_dec = e^{m* - M'}
+// of all its chunks at once over the lanes, then, chunk by chunk in
+// reverse, store the incoming carry (the adjoint of the chunk's exit state)
+// to dcc (bh, nchunks, DH, DH) / dnc (bh, nchunks, DH) and carry =
+// fmaf(e_dec, carry, dC_read), the segment's readout adjoints requested at
+// its start (mlstm_narrow::segment_issue).
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
-mlstm_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ g,
-                      const float* __restrict__ s, const float* __restrict__ cm,
-                      const float* __restrict__ ment, const float* __restrict__ denom_in,
-                      const float* __restrict__ drow_in, const float* __restrict__ dcc,
-                      const float* __restrict__ dnc, float* __restrict__ dk,
-                      float* __restrict__ dv, float* __restrict__ ds, int chunk,
-                      float scale) {
-  __shared__ float q_s[kMaxChunk][DH + 1];  // q / sqrt(DH)
-  __shared__ float k_s[kMaxChunk][DH + 1];
-  __shared__ float v_s[kMaxChunk][DH + 1];
-  __shared__ float g_s[kMaxChunk][DH + 1];  // g / denom
-  __shared__ float mcol_s[kMaxChunk];       // M_t = max(m*, cm_t)
-  __shared__ float drow_s[kMaxChunk];       // d rowsum_t
-  __shared__ float dc_s[DH][DH + 1];        // adjoint of the chunk's exit C*
-  __shared__ float dn_s[DH];
-
-  const int tid = threadIdx.x;
-  const int half = tid & 1;
-  const size_t cidx = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
-  const size_t off = cidx * chunk * DH;
-  const size_t goff = cidx * chunk;
-  const float m_in = ment[cidx];
-
-  for (int e = tid; e < chunk * DH; e += kThreads) {
-    const int r = e / DH, d = e % DH;
-    q_s[r][d] = q[off + e] * scale;
-    k_s[r][d] = k[off + e];
-    v_s[r][d] = v[off + e];
-    g_s[r][d] = g[off + e] / denom_in[goff + r];  // as the rows phase forms it
-  }
-  for (int e = tid; e < chunk; e += kThreads) {
-    mcol_s[e] = fmaxf(cm[goff + e], m_in);
-    drow_s[e] = drow_in[goff + e];
-  }
-  for (int e = tid; e < DH * DH; e += kThreads) dc_s[e / DH][e % DH] = dcc[cidx * DH * DH + e];
-  for (int e = tid; e < DH; e += kThreads) dn_s[e] = dnc[cidx * DH + e];
-  const float m_new = fmaxf(m_in, cm[goff + chunk - 1]);  // M' = max(m*, max s)
-  __syncthreads();
-
-  const bool live = (tid >> 1) < chunk;
-  const int p = live ? tid >> 1 : 0;
-  float kp[DH], vp[DH], dkp[DH], dvp[DH];
+__global__ void __launch_bounds__(32)
+mlstm_bwd_scan_kernel(const float* __restrict__ cm, const float* __restrict__ ment,
+                      const float* __restrict__ dcr, const float* __restrict__ dnr,
+                      float* __restrict__ dcc, float* __restrict__ dnc, int nchunks, int chunk) {
+  using namespace mlstm_narrow;
+  __shared__ __align__(16) float seg_s[kScanSeg * 32];
+  __shared__ float dec_s[kScanSeg];
+  griddep_launch_dependents();
+  const int lane = threadIdx.x;
+  float carry = 0.0f;
+  for (int seg_end = nchunks; seg_end > 0; seg_end -= kScanSeg) {
+    const int seg0 = max(0, seg_end - kScanSeg), n = seg_end - seg0;
+    const size_t base = static_cast<size_t>(blockIdx.x) * nchunks + seg0;
+    GroupRows gr;
+    const float* in0 = group_rows<DH>(dcr, dnr, base, gr);
+    float* out0 = group_rows<DH>(dcc, dnc, base, gr);
+    {  // every load of the segment's offsets in flight at once
+      float m_in[kScanSeg / 32], top[kScanSeg / 32];
 #pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    kp[d] = k_s[p][d];
-    vp[d] = v_s[p][d];
-    dkp[d] = 0.0f;
-    dvp[d] = 0.0f;
+      for (int u = 0; u < kScanSeg / 32; ++u) {
+        const int c = min(lane + 32 * u, n - 1);
+        m_in[u] = ment[base + c];
+        top[u] = cm[(base + c + 1) * chunk - 1];
+      }
+#pragma unroll
+      for (int u = 0; u < kScanSeg / 32; ++u) {
+        if (lane + 32 * u < n) dec_s[lane + 32 * u] = expf(m_in[u] - fmaxf(m_in[u], top[u]));
+      }
+    }
+    griddep_wait();  // the readout adjoints come from the rows launch
+    segment_issue<true>(seg_s, n, in0, gr);
+    __syncwarp();
+    carry = segment_chain<true, false>(seg_s, n, out0, gr, dec_s, nullptr, carry);
   }
-  const float sp = s[goff + p];
-  float dsp = 0.0f;
-  for (int t = p + half; live && t < chunk; t += 2) {
-    const float dec = expf(sp - mcol_s[t]);
+}
+
+// One key p of the columns kernel: its k, v and s in registers and its sums
+// over the rows this lane walks, dk_p = sum_t dqk[t][p] q_t / sqrt(DH), dv_p
+// = sum_t attn[t][p] g_t / denom_t and ds_p's attention part sum_t
+// dattn[t][p] attn[t][p], with attn and dattn recomputed from the stored
+// row scalars (M_t, d rowsum_t; q_s holds q / sqrt(DH), g_s g / denom).
+template <int DH>
+struct ColKey {
+  float kp[DH], vp[DH], dkp[DH], dvp[DH], sp, dsp;
+
+  __device__ __forceinline__ void load(const float* k_s, const float* v_s, const float* s_s,
+                                       int p) {
+    mlstm_narrow::load_row<DH>(k_s, p, kp);
+    mlstm_narrow::load_row<DH>(v_s, p, vp);
+    sp = s_s[p];
+    dsp = 0.0f;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) dkp[d] = dvp[d] = 0.0f;
+  }
+  __device__ __forceinline__ void step_rows(const float (&qt)[DH], const float (&gt)[DH],
+                                            float m_row, float drow) {
+    const float dec = expf(sp - m_row);
     float qk0 = 0.0f, qk1 = 0.0f, gv = 0.0f;
 #pragma unroll
     for (int d = 0; d < DH; d += 2) {
-      qk0 = fmaf(q_s[t][d], kp[d], qk0);
-      qk1 = fmaf(q_s[t][d + 1], kp[d + 1], qk1);
+      qk0 = fmaf(qt[d], kp[d], qk0);
+      qk1 = fmaf(qt[d + 1], kp[d + 1], qk1);
     }
 #pragma unroll
-    for (int d = 0; d < DH; ++d) gv = fmaf(g_s[t][d], vp[d], gv);
-    const float att = (qk0 + qk1) * dec;
-    const float dattn = gv + drow_s[t];
-    const float dqk = dattn * dec;
+    for (int d = 0; d < DH; ++d) gv = fmaf(gt[d], vp[d], gv);
+    const float att = __fmul_rn(__fadd_rn(qk0, qk1), dec);
+    const float dattn = __fadd_rn(gv, drow);
+    const float dqk = __fmul_rn(dattn, dec);
 #pragma unroll
     for (int d = 0; d < DH; ++d) {
-      dkp[d] = fmaf(dqk, q_s[t][d], dkp[d]);
-      dvp[d] = fmaf(att, g_s[t][d], dvp[d]);
+      dkp[d] = fmaf(dqk, qt[d], dkp[d]);
+      dvp[d] = fmaf(att, gt[d], dvp[d]);
     }
     dsp = fmaf(dattn, att, dsp);
   }
-  dsp += __shfl_xor_sync(0xffffffffu, dsp, 1);
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    dkp[d] += __shfl_xor_sync(0xffffffffu, dkp[d], 1);
-    dvp[d] += __shfl_xor_sync(0xffffffffu, dvp[d], 1);
+  __device__ __forceinline__ void step(const float* q_s, const float* g_s, float m_row, float drow,
+                                       int t) {
+    float qt[DH], gt[DH];
+    mlstm_narrow::load_row<DH>(q_s, t, qt);
+    mlstm_narrow::load_row<DH>(g_s, t, gt);
+    step_rows(qt, gt, m_row, drow);
   }
-  // The state update's adjoint of key p (C*' gets e^{s_p - M'} k_p v_p^T):
-  // each thread of the pair forms its half of the columns d, and each value
-  // is used where it is formed, so that no DH-wide array of them stays live.
-  const float w = expf(sp - m_new);
-  float* dk_row = dk + off + static_cast<size_t>(p) * DH;
-  float* dv_row = dv + off + static_cast<size_t>(p) * DH;
-  float ds_state = 0.0f;
+  // The lanes' sums; then for a live key, this lane's columns of dk_p =
+  // w (v_p dC^T + dn) + .., dv_p = w k_p dC + .. and ds_p = w sum_i k_p[i]
+  // (v_p dC^T + dn)_i + .., w = e^{s_p - M'}. Every lane calls it.
+  __device__ __forceinline__ void finish(const float* k_s, const float* dc_s, const float* dn_s,
+                                         float m_new, int col0, bool live, float* dk, float* dv,
+                                         float* ds, int p) {
+    using namespace mlstm_narrow;
+    constexpr int kLd = Width<DH>::kLd, kCols = Width<DH>::kCols;
+    const float ds_attn = group_sum(dsp);
+    float dk_sum[kCols], dv_sum[kCols];
+    group_scatter<DH>(dkp, dk_sum);
+    group_scatter<DH>(dvp, dv_sum);
+    const float wk = expf(sp - m_new);
+    float dk_own[kCols], dv_own[kCols], ds_state = 0.0f;
 #pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    if ((d >= DH / 2) != (half == 1)) continue;
-    float vdc = 0.0f, kdc = 0.0f;  // (v_p dC^T)_d and (k_p^T dC)_d
+    for (int c = 0; c < kCols; ++c) {
+      const int d = col0 + c;
+      float vdc = 0.0f, kdc = 0.0f;  // (v_p dC^T)_d and (k_p^T dC)_d
 #pragma unroll
-    for (int j = 0; j < DH; ++j) {
-      vdc = fmaf(vp[j], dc_s[d][j], vdc);
-      kdc = fmaf(kp[j], dc_s[j][d], kdc);
+      for (int j = 0; j < DH; ++j) {
+        vdc = fmaf(vp[j], dc_s[d * kLd + j], vdc);
+        kdc = fmaf(kp[j], dc_s[j * kLd + d], kdc);
+      }
+      const float vdn = __fadd_rn(vdc, dn_s[d]);
+      ds_state = fmaf(k_s[p * kLd + d], vdn, ds_state);
+      dk_own[c] = fmaf(wk, vdn, dk_sum[c]);
+      dv_own[c] = fmaf(wk, kdc, dv_sum[c]);
     }
-    ds_state = fmaf(kp[d], vdc + dn_s[d], ds_state);
-    if (live) {
-      dk_row[d] = fmaf(w, vdc + dn_s[d], dkp[d]);
-      dv_row[d] = fmaf(w, kdc, dvp[d]);
+    ds_state = group_sum(ds_state);
+    if (!live) return;
+    store_cols<DH>(dk + static_cast<size_t>(p) * DH + col0, dk_own);
+    store_cols<DH>(dv + static_cast<size_t>(p) * DH + col0, dv_own);
+    if (col0 == 0) ds[p] = fmaf(wk, ds_state, ds_attn);
+  }
+};
+
+// Phase 3. Grid (bh, nchunks), mlstm_narrow::kThreads: each group of kSplit
+// lanes walks its four keys, two at a time over the rows at and below them
+// (the readout's slots mirrored; each row read once for both keys).
+// Writes dk, dv (bh, Sp, DH) and ds (bh, Sp); then one warp adds the
+// carried dm of the chunk's entry m*, e_dec (sum dC * C* + sum dn * n*) +
+// dm_read, to dax at the previous chunk's last row (m*' = a_{L-1} + M'), for
+// every chunk but a head's first: one writer per element, after phase 1's.
+template <int DH>
+__global__ void __launch_bounds__(mlstm_narrow::kThreads)
+mlstm_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ g,
+                      const float* __restrict__ s, const float* __restrict__ cm,
+                      const float* __restrict__ cent, const float* __restrict__ nent,
+                      const float* __restrict__ ment, const float* __restrict__ denom_in,
+                      const float* __restrict__ drow_in, const float* __restrict__ dcc,
+                      const float* __restrict__ dnc, const float* __restrict__ dmr,
+                      float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ ds,
+                      float* __restrict__ dax, int chunk, float scale) {
+  using namespace mlstm_narrow;
+  constexpr int kLd = Width<DH>::kLd;
+  __shared__ __align__(16) float q_s[kMaxChunk * kLd];  // q / sqrt(DH)
+  __shared__ __align__(16) float k_s[kMaxChunk * kLd];
+  __shared__ __align__(16) float v_s[kMaxChunk * kLd];
+  __shared__ __align__(16) float g_s[kMaxChunk * kLd];  // g / denom
+  __shared__ __align__(16) float dc_s[DH * kLd];        // adjoint of the chunk's exit C*
+  __shared__ float s_s[kMaxChunk];
+  __shared__ float mcol_s[kMaxChunk];                   // M_t = max(m*, cm_t)
+  __shared__ float drow_s[kMaxChunk];                   // d rowsum_t
+  __shared__ float den_s[kMaxChunk];                    // denom_t
+  __shared__ float dn_s[DH];
+
+  const int tid = threadIdx.x;
+  const size_t cidx = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
+  const size_t off = cidx * chunk * DH;
+  const size_t goff = cidx * chunk;
+  const float m_in = ment[cidx];
+  stage_rows<DH>(q_s, q + off, chunk);  // the call's inputs, while the scan runs
+  stage_rows<DH>(k_s, k + off, chunk);
+  stage_rows<DH>(v_s, v + off, chunk);
+  stage_rows<DH>(g_s, g + off, chunk);
+  mlstm_wide::cp_async_commit();
+  for (int e = tid; e < chunk; e += mlstm_narrow::kThreads) {
+    s_s[e] = s[goff + e];
+    mcol_s[e] = fmaxf(cm[goff + e], m_in);
+  }
+  const float m_new = fmaxf(m_in, cm[goff + chunk - 1]);  // M' = max(m*, max s)
+  griddep_wait();  // the carries come from the scan, the row scalars from the rows launch
+  stage_rows<DH>(dc_s, dcc + cidx * DH * DH, DH);
+  mlstm_wide::cp_async_commit();
+  for (int e = tid; e < chunk; e += mlstm_narrow::kThreads) {
+    drow_s[e] = drow_in[goff + e];
+    den_s[e] = denom_in[goff + e];
+  }
+  if (tid < DH) dn_s[tid] = dnc[cidx * DH + tid];
+  cp_async_wait<0>();
+  __syncthreads();
+  scale_rows<DH>(q_s, chunk, scale);
+  divide_rows<DH>(g_s, chunk, den_s);  // as the rows phase forms g / denom
+  __syncthreads();
+
+  const int col0 = first_col<DH>();
+  for (int s = 0; s < 2; ++s) {
+    // the mirror of the readout's slot: keys A = L-1-hi (rows A .. L-1) and
+    // B = A + 1, walking rows t = A + first, + kSplit, ... (t >= B for B)
+    const Slot w = slot(chunk, s);
+    const int key_a = w.live_hi ? chunk - 1 - w.hi : 0;
+    const int key_b = w.live_lo ? chunk - 1 - w.lo : 0;
+    ColKey<DH> ka, kb;
+    ka.load(k_s, v_s, s_s, key_a);
+    kb.load(k_s, v_s, s_s, key_b);
+    int t = (w.live_hi ? key_a : key_b - 1) + w.first;
+    if (t == key_b - 1) {  // key A's own row, which key B does not see
+      if (w.live_hi) ka.step(q_s, g_s, mcol_s[t], drow_s[t], t);
+      t += kSplit;
+    }
+    if (w.live_hi && w.live_lo) {
+#pragma unroll 1
+      for (; t < chunk; t += kSplit) {  // the rows both keys see, read once
+        float qt[DH], gt[DH];
+        load_row<DH>(q_s, t, qt);
+        load_row<DH>(g_s, t, gt);
+        ka.step_rows(qt, gt, mcol_s[t], drow_s[t]);
+        kb.step_rows(qt, gt, mcol_s[t], drow_s[t]);
+      }
+    } else if (w.live_hi) {
+      for (; t < chunk; t += kSplit) ka.step(q_s, g_s, mcol_s[t], drow_s[t], t);
+    } else if (w.live_lo) {
+      for (; t < chunk; t += kSplit) kb.step(q_s, g_s, mcol_s[t], drow_s[t], t);
+    }
+    // the lanes' sums, then the state update's adjoint of each key (C*' gets
+    // e^{s_p - M'} k_p v_p^T) under the adjoint dC, dn of the chunk's exit
+    // state, this lane's columns
+    ka.finish(k_s, dc_s, dn_s, m_new, col0, w.live_hi, dk + off, dv + off, ds + goff, key_a);
+    kb.finish(k_s, dc_s, dn_s, m_new, col0, w.live_lo, dk + off, dv + off, ds + goff, key_b);
+  }
+
+  // The adjoint of this chunk's entry m* is the carried dm of the chunk
+  // before it: lanes over the elements in order, then the warp's sum.
+  const int first_chunk = static_cast<int>(blockIdx.y) == 0;
+  if (tid >= mlstm_narrow::kThreads - 32 && !first_chunk) {
+    const int lane = tid & 31;
+    float part = 0.0f;
+    for (int e = lane; e < DH * DH; e += 32) {
+      part = fmaf(dc_s[(e / DH) * kLd + e % DH], cent[cidx * DH * DH + e], part);
+    }
+    if (lane < DH) part = fmaf(dn_s[lane], nent[cidx * DH + lane], part);
+    for (int o = 16; o > 0; o >>= 1) part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+    if (lane == 0) {
+      dax[goff - 1] = __fadd_rn(dax[goff - 1], fmaf(expf(m_in - m_new), part, dmr[cidx]));
     }
   }
-  ds_state += __shfl_xor_sync(0xffffffffu, ds_state, 1);
-  if (live && half == 0) ds[goff + p] = fmaf(w, ds_state, dsp);
 }
 
 template <int DH>
@@ -416,19 +485,26 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
                    float* ds, float* dax, float* denom, float* drow, float* dcr, float* dnr,
                    float* dmr, float* dcc, float* dnc, int bh, int nchunks, int chunk,
                    float scale, float eps, cudaStream_t st) {
-  const dim3 grid(bh, nchunks);
-  mlstm_bwd_rows_kernel<DH><<<grid, kThreads, 0, st>>>(
-      q, k, v, g, a, s, cm, cent, nent, ment, dq, dax, denom, drow, dcr, dnr, dmr, chunk, scale,
-      eps);
+  using mlstm_narrow::launch_dependent;
+  const dim3 grid(bh, nchunks), block(mlstm_narrow::kThreads);
+  mlstm_bwd_rows_kernel<DH><<<grid, block, 0, st>>>(q, k, v, g, a, s, cm, cent, nent, ment, dq,
+                                                    dax, denom, drow, dcr, dnr, dmr, chunk, scale,
+                                                    eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mlstm_bwd_scan_kernel<DH><<<bh, DH * DH, 0, st>>>(cm, cent, nent, ment, dcr, dnr, dmr, dcc,
-                                                    dnc, dax, nchunks, chunk);
-  err = cudaGetLastError();
+  err = launch_dependent(mlstm_bwd_scan_kernel<DH>,
+                         dim3(bh, mlstm_narrow::ScanGroups<DH>::kGroups), dim3(32), st, cm, ment,
+                         dcr, dnr, dcc, dnc, nchunks, chunk);
   if (err != cudaSuccess) return err;
-  mlstm_bwd_cols_kernel<DH><<<grid, kThreads, 0, st>>>(q, k, v, g, s, cm, ment, denom, drow,
-                                                       dcc, dnc, dk, dv, ds, chunk, scale);
-  return cudaGetLastError();
+  return launch_dependent(mlstm_bwd_cols_kernel<DH>, grid, block, st, q, k, v, g, s, cm, cent,
+                          nent, ment, denom, drow, dcc, dnc, dmr, dk, dv, ds, dax, chunk, scale);
+}
+
+// e_dec = e^{m* - M'} of chunk cidx, M' = max(m*, max s).
+__device__ __forceinline__ float entry_decay(const float* cm, const float* ment,
+                                             size_t cidx, int chunk) {
+  const float m_in = ment[cidx];
+  return expf(m_in - fmaxf(m_in, cm[(cidx + 1) * chunk - 1]));
 }
 
 // ---- the wide path (dp a multiple of 32)
@@ -970,7 +1046,7 @@ wide_bwd_scan_kernel(const float* __restrict__ cm, const float* __restrict__ men
       e_dec[u] = entry_decay(cm, ment, cidx, chunk);
     }
 #pragma unroll
-    for (int u = 0; u < kScanAhead; ++u) {  // no early exit, as in the narrow scan
+    for (int u = 0; u < kScanAhead; ++u) {  // no early exit: a branch would sink the loads below it
       if (c0 - u >= 0) {
         const size_t cidx = base + c0 - u;
         if (is_c) {

@@ -11,25 +11,32 @@
 // call. The Pallas kernel walks the chunks of a head in order, carrying the
 // state in VMEM; here only that carry is sequential, in three launches:
 //  1. chunk states, one block per (head, chunk): the chunk's local state
-//     relative to its largest s, cm_{L-1} (every exponent <= 0):
+//     relative to its largest s, cm_{L-1} (every exponent <= 0), as 2 x 2
+//     register tiles summed over groups of rows (mlstm_narrow::outer_sum):
 //       K_c = sum_p e^{s_p - cm_{L-1}} k_p v_p^T,  n_c = sum_p e^{..} k_p;
-//  2. carry scan, one block per head, one thread per element of C*: for each
-//     chunk, store the entry state, then with M' = max(m*, cm_{L-1})
-//       C*' = e^{m* - M'} C* + e^{cm_{L-1} - M'} K_c,  n*' likewise,
-//       m*' = a_{L-1} + M',
-//     from m* = -1e30; m* is then bitwise the JAX _m_entry_chain (the same
-//     fp32 operations);
+//  2. carry scan, one warp per 32 elements of (C*, n*) of a head: per
+//     segment of 256 chunks, first the scalar chain (M' = max(m*, cm_{L-1}),
+//     m*' = a_{L-1} + M', from m* = -1e30, the same fp32 operations as the
+//     JAX _m_entry_chain, so m* is bitwise its), then the decays e^{m* - M'}
+//     and e^{cm_{L-1} - M'} of all the segment's chunks at once, then per
+//     chunk: store the entry state and
+//       C*' = fmaf(e^{m* - M'}, C*, e^{cm_{L-1} - M'} K_c),  n*' likewise;
 //  3. readout, one block per (head, chunk), from the chunk's entry state:
 //       M_t    = max(m*, cm_t)
 //       num_t  = sum_{j<=t} e^{s_j - M_t} (q_t.k_j / sqrt(DH)) v_j + e^{m* - M_t} (q_t / sqrt(DH)) C*
 //       rowsum = the same with 1 in place of v_j and n* in place of C*
 //       h_t    = num_t / (max(|rowsum_t|, e^{-max(a_t + M_t, -60)}) + eps)
 //     The causal mask is the loop bound j <= t, so masked entries are never
-//     formed (the log-space mask of the reference, exactly). Two threads
-//     share each row (they split the keys by parity and combine with one
-//     shuffle); mlstm_bwd.cu repeats these operations in this order to form
-//     the same denominators and branches.
-// Padded keys (igate -1e30, zero k and v) add exact zeros.
+//     formed (the log-space mask of the reference, exactly). The rows are
+//     walked as mlstm_narrow.cuh sets out: eight lanes share a group of four
+//     rows (two long, two short), each lane reads every eighth key once for
+//     two adjacent rows, and no lane takes more than 2 ceil((L + 2) / 8)
+//     (row, key) pairs (34 at L = 128); mlstm_bwd.cu forms every score
+//     with the same operations on the same lanes to get the same
+//     denominators and branches.
+// Padded keys (igate -1e30, zero k and v) add exact zeros. The scan and
+// the readout are programmatic dependents of the launch before them: they
+// load what the call's inputs give them while it runs.
 //
 // Precision: every product is an IEEE fp32 FMA on the CUDA cores, and expf
 // is the full-precision libm call (no fast math). No TF32: its products
@@ -38,15 +45,16 @@
 // 3xTF32 on the wide path broke the absolute bound at DH 512
 // (mlstm_wide.cuh).
 //
-// What bounds the narrow path: the work is small (about 0.09 GFLOP and 4.4 MB for the
-// flagship's 4 heads at S = 4096, about 1.4 us at the card's fp32 rate), so
-// latency bounds each phase, not a peak rate. Phases 1 and 3 run B*NH x
-// S/L blocks (128 at S = 4096), one wave on the 132 SMs; the readout's
-// longest row (t = L-1, 64 keys per thread) sets its time. The scan is a
-// chain of nchunks steps of one FMA pair and two expf each; it loads its
-// inputs kScanAhead chunks ahead so that the chain does not wait on memory.
-// Tiles are read with coalesced 4-byte loads (a 128 x 16 tile is 8 loads a
-// thread); static shared memory stays under 48 KB.
+// What bounds the narrow path (an H100 80GB HBM3 at 700 W, PERF.md): not a
+// peak rate. At the flagship's S = 4096 (4 heads, 128 blocks, one wave of
+// the 132 SMs) the forward's 0.09 GFLOP would take 1.4 us at the fp32 rate;
+// each launch is a few microseconds of latency (the copies in, the chain,
+// the block's barriers and sums over its lanes). At S 32768-49152 (DH 8,
+// 1024-1536 blocks) the readout is bound by its instructions per causal
+// pair (two DH-long FMA chains and a full-precision expf) and by shared
+// memory, which the two-row walk reads once for two rows; the scan by one
+// dependent fmaf a chunk. Tiles come in as 16-byte cp.async copies; static
+// shared memory stays under 48 KB.
 //
 // Head widths. The kernels above are built for DH 8 and 16 (the flagship's
 // and the ViL decoder's widths): narrower heads are zero-padded to one of
@@ -64,176 +72,212 @@
 
 #include <cuda_runtime.h>
 
+#include "mlstm_narrow.cuh"
 #include "mlstm_wide.cuh"
 
 namespace {
 
 constexpr int kMaxChunk = 128;
-constexpr int kThreads = 256;   // two threads per readout row
-constexpr int kScanAhead = 8;   // chunks whose inputs the scan loads at once
+constexpr int kThreads = 256;   // the wide scan's blocks
+constexpr int kScanAhead = 8;   // chunks whose inputs the wide scan loads at once
 constexpr int kMaxGridY = 65535;
 
-// Phase 1. Grid (bh, nchunks); writes kc (bh, nchunks, DH, DH), nc (bh, nchunks, DH).
+using mlstm_narrow::Slot;
+using mlstm_narrow::Width;
+
+// Phase 1. Grid (bh, nchunks), mlstm_narrow::kThreads; writes kc (bh, nchunks, DH, DH),
+// nc (bh, nchunks, DH): K_c = sum_p (k_p e^{s_p - cm_{L-1}}) v_p^T and n_c =
+// sum_p k_p e^{..}, as 2 x 2 register tiles (mlstm_narrow::outer_sum).
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mlstm_narrow::kThreads)
 mlstm_chunk_state_kernel(const float* __restrict__ k, const float* __restrict__ v,
                          const float* __restrict__ s, const float* __restrict__ cm,
                          float* __restrict__ kc, float* __restrict__ nc, int chunk) {
-  __shared__ float k_s[kMaxChunk][DH];
-  __shared__ float v_s[kMaxChunk][DH];
+  using namespace mlstm_narrow;
+  constexpr int kLd = Width<DH>::kLd;
+  __shared__ __align__(16) float k_s[kMaxChunk * kLd];
+  __shared__ __align__(16) float v_s[kMaxChunk * kLd];
   __shared__ float w_s[kMaxChunk];
+  __shared__ float red_s[Outer<DH>::kRedFloats];
 
-  const int tid = threadIdx.x;
+  griddep_launch_dependents();  // the scan's gate work needs nothing of this kernel
   const size_t cidx = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
   const size_t off = cidx * chunk * DH;  // Sp = nchunks * chunk
   const size_t goff = cidx * chunk;
+  stage_rows<DH>(k_s, k + off, chunk);
+  stage_rows<DH>(v_s, v + off, chunk);
+  mlstm_wide::cp_async_commit();
   const float top = cm[goff + chunk - 1];  // the chunk's largest s
-  for (int e = tid; e < chunk * DH; e += kThreads) {
-    k_s[e / DH][e % DH] = k[off + e];
-    v_s[e / DH][e % DH] = v[off + e];
+  for (int e = threadIdx.x; e < chunk; e += mlstm_narrow::kThreads) {
+    w_s[e] = expf(s[goff + e] - top);
   }
-  for (int e = tid; e < chunk; e += kThreads) w_s[e] = expf(s[goff + e] - top);
+  cp_async_wait<0>();
   __syncthreads();
-
-  for (int e = tid; e < DH * DH; e += kThreads) {
-    const int i = e / DH, j = e % DH;
-    float acc = 0.0f;
-    for (int p = 0; p < chunk; ++p) acc = fmaf(k_s[p][i] * w_s[p], v_s[p][j], acc);
-    kc[cidx * DH * DH + e] = acc;
-  }
-  for (int e = tid; e < DH; e += kThreads) {
-    float acc = 0.0f;
-    for (int p = 0; p < chunk; ++p) acc = fmaf(k_s[p][e], w_s[p], acc);
-    nc[cidx * DH + e] = acc;
-  }
+  outer_sum<DH, false>(k_s, w_s, v_s, nullptr, chunk, red_s, kc + cidx * DH * DH, nc + cidx * DH);
 }
 
-// Phase 2. Grid (bh), DH * DH threads; writes the entry states
-// cent (bh, nchunks, DH, DH), nent (bh, nchunks, DH), ment (bh, nchunks).
+// Phase 2. Grid (bh, ScanGroups<DH>::kGroups), one warp: 32 elements of C*
+// (or the DH of n*) of one head; writes their entry states cent (bh,
+// nchunks, DH, DH), nent (bh, nchunks, DH) and (group 0) ment (bh,
+// nchunks). Per segment of kScanSeg chunks: the m* chain, the same fp32
+// operations as JAX's _m_entry_chain (M' = max(m*, cm_{L-1}), m*' = a_{L-1}
+// + M', from m* = -1e30), every lane alike; the decays e^{m* - M'} and
+// e^{cm_{L-1} - M'} of all the segment's chunks at once, over the lanes;
+// then C*' = fmaf(e^{m* - M'}, C*, e^{cm_{L-1} - M'} K_c) (n* likewise), the
+// segment's K_c requested at its start (mlstm_narrow::segment_issue).
 template <int DH>
-__global__ void __launch_bounds__(DH * DH)
+__global__ void __launch_bounds__(32)
 mlstm_fwd_scan_kernel(const float* __restrict__ a, const float* __restrict__ cm,
                       const float* __restrict__ kc, const float* __restrict__ nc,
                       float* __restrict__ cent, float* __restrict__ nent,
                       float* __restrict__ ment, int nchunks, int chunk) {
-  const int tid = threadIdx.x;  // element (tid / DH, tid % DH) of C*
-  const bool has_n = tid < DH;
-  const size_t base = static_cast<size_t>(blockIdx.x) * nchunks;
-  float c_state = 0.0f, n_state = 0.0f;
-  float m_state = -1e30f;  // every thread carries the same m*
-  for (int c0 = 0; c0 < nchunks; c0 += kScanAhead) {
-    float k_in[kScanAhead], n_in[kScanAhead], top[kScanAhead], a_last[kScanAhead];
+  using namespace mlstm_narrow;
+  __shared__ __align__(16) float seg_s[kScanSeg * 32];
+  __shared__ float top_s[kScanSeg], last_s[kScanSeg], old_s[kScanSeg], new_s[kScanSeg];
+  griddep_launch_dependents();
+  const int lane = threadIdx.x;
+  float state = 0.0f;
+  float m_state = -1e30f;  // every lane carries the same m*
+  for (int seg0 = 0; seg0 < nchunks; seg0 += kScanSeg) {
+    const int n = min(kScanSeg, nchunks - seg0);
+    const size_t base = static_cast<size_t>(blockIdx.x) * nchunks + seg0;
+    GroupRows gr;
+    const float* in0 = group_rows<DH>(kc, nc, base, gr);
+    float* out0 = group_rows<DH>(cent, nent, base, gr);
+    {  // every load of the segment's gates in flight at once
+      float top[kScanSeg / 32], last[kScanSeg / 32];
 #pragma unroll
-    for (int u = 0; u < kScanAhead; ++u) {  // loads that do not wait on the carry
-      const size_t cidx = base + min(c0 + u, nchunks - 1);
-      k_in[u] = kc[cidx * DH * DH + tid];
-      n_in[u] = has_n ? nc[cidx * DH + tid] : 0.0f;
-      top[u] = cm[(cidx + 1) * chunk - 1];
-      a_last[u] = a[(cidx + 1) * chunk - 1];
-    }
-    // No early exit: a branch here would sink each step's loads below it,
-    // and the chain would wait on memory at every step. Past the last chunk
-    // the steps run on repeated inputs and store nothing.
-#pragma unroll
-    for (int u = 0; u < kScanAhead; ++u) {
-      if (c0 + u < nchunks) {
-        const size_t cidx = base + c0 + u;
-        cent[cidx * DH * DH + tid] = c_state;
-        if (has_n) nent[cidx * DH + tid] = n_state;
-        if (tid == 0) ment[cidx] = m_state;
+      for (int u = 0; u < kScanSeg / 32; ++u) {
+        const size_t at = (base + min(lane + 32 * u, n - 1) + 1) * chunk - 1;
+        top[u] = cm[at];
+        last[u] = a[at];
       }
-      const float m_new = fmaxf(m_state, top[u]);  // M' = max(m*, max s)
-      const float decay_old = expf(m_state - m_new);
-      const float decay_new = expf(top[u] - m_new);
-      c_state = fmaf(decay_old, c_state, decay_new * k_in[u]);
-      n_state = fmaf(decay_old, n_state, decay_new * n_in[u]);
-      m_state = a_last[u] + m_new;
+#pragma unroll
+      for (int u = 0; u < kScanSeg / 32; ++u) {
+        if (lane + 32 * u < n) {
+          top_s[lane + 32 * u] = top[u];
+          last_s[lane + 32 * u] = last[u];
+        }
+      }
     }
+    __syncwarp();
+    // the m* chain, eight chunks of straight-line code at a time
+    int c0 = 0;
+    for (; c0 + 8 <= n; c0 += 8) {
+      float top[8], last[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        top[u] = top_s[c0 + u];
+        last[u] = last_s[c0 + u];
+      }
+      float entry[8];  // stored after the block: the chain waits on no store
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        entry[u] = m_state;
+        const float m_new = fmaxf(m_state, top[u]);  // M' = max(m*, max s)
+        m_state = last[u] + m_new;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) old_s[c0 + u] = entry[u];  // the entry m*, for now
+    }
+    for (; c0 < n; ++c0) {
+      old_s[c0] = m_state;
+      const float m_new = fmaxf(m_state, top_s[c0]);
+      m_state = last_s[c0] + m_new;
+    }
+    __syncwarp();
+#pragma unroll 8
+    for (int c = lane; c < n; c += 32) {
+      const float m_in = old_s[c];
+      const float m_new = fmaxf(m_in, top_s[c]);
+      if (blockIdx.y == 0) ment[base + c] = m_in;
+      old_s[c] = expf(m_in - m_new);
+      new_s[c] = expf(top_s[c] - m_new);
+    }
+    griddep_wait();  // K_c and n_c come from the chunk-state launch
+    segment_issue<false>(seg_s, n, in0, gr);
+    __syncwarp();
+    state = segment_chain<false, true>(seg_s, n, out0, gr, old_s, new_s, state);
   }
 }
 
-// Phase 3. Grid (bh, nchunks); reads the entry states, writes out (bh, Sp, DH).
+// Phase 3. Grid (bh, nchunks), mlstm_narrow::kThreads: each group of
+// kSplit lanes walks its four rows, two at a time (mlstm_narrow::slot,
+// readout_slot); reads the entry states, writes out (bh, Sp, DH). Per row t:
+// its scores and row_denominator (the backward's rows kernel forms the same
+// bits), then lane u's DH/kSplit columns of
+//   h_t = (num_t + e^{m* - M_t} (q_t / sqrt(DH)) C*) / denom_t.
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mlstm_narrow::kThreads)
 mlstm_readout_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ a,
                      const float* __restrict__ s, const float* __restrict__ cm,
                      const float* __restrict__ cent, const float* __restrict__ nent,
                      const float* __restrict__ ment, float* __restrict__ out, int chunk,
                      float scale, float eps) {
-  __shared__ float q_s[kMaxChunk][DH + 1];  // +1: rows are read per thread
-  __shared__ float k_s[kMaxChunk][DH];
-  __shared__ float v_s[kMaxChunk][DH];
+  using namespace mlstm_narrow;
+  constexpr int kLd = Width<DH>::kLd, kCols = Width<DH>::kCols;
+  __shared__ __align__(16) float q_s[kMaxChunk * kLd];  // q / sqrt(DH)
+  __shared__ __align__(16) float k_s[kMaxChunk * kLd];
+  __shared__ __align__(16) float v_s[kMaxChunk * kLd];
+  __shared__ __align__(16) float c_s[DH * kLd];
   __shared__ float s_s[kMaxChunk];
-  __shared__ float c_s[DH][DH];
+  __shared__ float mrow_s[kMaxChunk];  // M_t = max(m*, cm_t)
+  __shared__ float a_s[kMaxChunk];
   __shared__ float n_s[DH];
 
   const int tid = threadIdx.x;
-  const int row = tid >> 1;   // readout row of this thread
-  const int half = tid & 1;   // which parity of keys it sums
   const size_t cidx = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
   const size_t off = cidx * chunk * DH;
   const size_t goff = cidx * chunk;
-
-  for (int e = tid; e < chunk * DH; e += kThreads) {
-    const int r = e / DH, d = e % DH;
-    q_s[r][d] = q[off + e];
-    k_s[r][d] = k[off + e];
-    v_s[r][d] = v[off + e];
+  static_assert(mlstm_narrow::kThreads >= kMaxChunk, "one thread per row of the chunk");
+  stage_rows<DH>(q_s, q + off, chunk);  // the call's inputs, while the scan runs
+  stage_rows<DH>(k_s, k + off, chunk);
+  stage_rows<DH>(v_s, v + off, chunk);
+  mlstm_wide::cp_async_commit();
+  const bool row = tid < chunk;
+  const float cm_t = row ? cm[goff + tid] : 0.0f;
+  if (row) {
+    s_s[tid] = s[goff + tid];
+    a_s[tid] = a[goff + tid];
   }
-  for (int e = tid; e < chunk; e += kThreads) s_s[e] = s[goff + e];
-  for (int e = tid; e < DH * DH; e += kThreads) c_s[e / DH][e % DH] = cent[cidx * DH * DH + e];
-  for (int e = tid; e < DH; e += kThreads) n_s[e] = nent[cidx * DH + e];
+  griddep_wait();  // the entry states come from the scan
+  stage_rows<DH>(c_s, cent + cidx * DH * DH, DH);
+  mlstm_wide::cp_async_commit();
   const float m_state = ment[cidx];
+  if (row) mrow_s[tid] = fmaxf(cm_t, m_state);
+  if (tid < DH) n_s[tid] = nent[cidx * DH + tid];
+  cp_async_wait<0>();
+  __syncthreads();
+  scale_rows<DH>(q_s, chunk, scale);
   __syncthreads();
 
-  // Every thread runs the row code so that the pair shuffle sees a full
-  // warp; rows past the chunk sum nothing and store nothing.
-  const bool live = row < chunk;
-  const int t = live ? row : 0;
-  float qs[DH];
+  const int col0 = first_col<DH>();
+  const auto finish = [&](int t, const float (&qs)[DH], const float (&num)[kCols], float keys) {
+    const RowScalars r = row_denominator<DH>(qs, n_s, m_state, mrow_s[t], a_s[t], keys, eps);
+    float h[kCols];
 #pragma unroll
-  for (int d = 0; d < DH; ++d) qs[d] = q_s[t][d] * scale;
-  const float m_row = fmaxf(cm[goff + t], m_state);  // M_t
-
-  float num[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) num[d] = 0.0f;
-  float rowsum = 0.0f;
-  const int last = live ? t : -1;
-  for (int j = half; j <= last; j += 2) {
-    const float dec = expf(s_s[j] - m_row);
-    float qk0 = 0.0f, qk1 = 0.0f;
-#pragma unroll
-    for (int d = 0; d < DH; d += 2) {
-      qk0 = fmaf(qs[d], k_s[j][d], qk0);
-      qk1 = fmaf(qs[d + 1], k_s[j][d + 1], qk1);
-    }
-    const float att = (qk0 + qk1) * dec;
-    rowsum += att;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) num[d] = fmaf(att, v_s[j][d], num[d]);
-  }
-  rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-#pragma unroll
-  for (int d = 0; d < DH; ++d) num[d] += __shfl_xor_sync(0xffffffffu, num[d], 1);
-
-  if (live) {
-    const float inter = expf(m_state - m_row);
-    float qn = 0.0f;
-#pragma unroll
-    for (int i = 0; i < DH; ++i) qn = fmaf(qs[i], n_s[i], qn);
-    rowsum = fmaf(inter, qn, rowsum);
-    const float denom = fmaxf(fabsf(rowsum), expf(-fmaxf(a[goff + t] + m_row, -60.0f))) + eps;
-    float* o = out + off + static_cast<size_t>(t) * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      if ((d >= DH / 2) != (half == 1)) continue;  // each thread stores half
+    for (int c = 0; c < kCols; ++c) {
       float qc = 0.0f;
 #pragma unroll
-      for (int i = 0; i < DH; ++i) qc = fmaf(qs[i], c_s[i][d], qc);
-      o[d] = fmaf(inter, qc, num[d]) / denom;
+      for (int i = 0; i < DH; ++i) qc = fmaf(qs[i], c_s[i * kLd + col0 + c], qc);
+      h[c] = __fdiv_rn(fmaf(r.inter, qc, num[c]), r.denom);
     }
+    store_cols<DH>(out + off + static_cast<size_t>(t) * DH + col0, h);
+  };
+  for (int s = 0; s < 2; ++s) {
+    const Slot w = slot(chunk, s);
+    float qs_hi[DH], qs_lo[DH];
+#pragma unroll
+    for (int d = 0; d < DH; ++d) {
+      qs_hi[d] = q_s[w.hi * kLd + d];
+      qs_lo[d] = q_s[w.lo * kLd + d];
+    }
+    float num_hi[kCols], num_lo[kCols], keys_hi, keys_lo;
+    readout_slot<DH>(w, qs_hi, qs_lo, mrow_s[w.hi], mrow_s[w.lo], k_s, v_s, s_s, num_hi, num_lo,
+                     keys_hi, keys_lo);
+    if (w.live_hi) finish(w.hi, qs_hi, num_hi, keys_hi);
+    if (w.live_lo) finish(w.lo, qs_lo, num_lo, keys_lo);
   }
 }
 
@@ -265,7 +309,7 @@ wide_fwd_scan_kernel(const float* __restrict__ a, const float* __restrict__ cm,
       a_last[u] = a[(cidx + 1) * chunk - 1];
     }
 #pragma unroll
-    for (int u = 0; u < kScanAhead; ++u) {  // no early exit, as in the narrow scan
+    for (int u = 0; u < kScanAhead; ++u) {  // no early exit: a branch would sink the loads below it
       if (c0 + u < nchunks) {
         const size_t cidx = base + c0 + u;
         if (is_c) cent[cidx * n_c + e] = state;
@@ -286,17 +330,17 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
                    const float* s, const float* cm, float* out, float* kc, float* nc,
                    float* cent, float* nent, float* ment, int bh, int nchunks, int chunk,
                    float scale, float eps, cudaStream_t st) {
-  const dim3 grid(bh, nchunks);
-  mlstm_chunk_state_kernel<DH><<<grid, kThreads, 0, st>>>(k, v, s, cm, kc, nc, chunk);
+  using mlstm_narrow::launch_dependent;
+  const dim3 grid(bh, nchunks), block(mlstm_narrow::kThreads);
+  mlstm_chunk_state_kernel<DH><<<grid, block, 0, st>>>(k, v, s, cm, kc, nc, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mlstm_fwd_scan_kernel<DH><<<bh, DH * DH, 0, st>>>(a, cm, kc, nc, cent, nent, ment,
-                                                    nchunks, chunk);
-  err = cudaGetLastError();
+  err = launch_dependent(mlstm_fwd_scan_kernel<DH>,
+                         dim3(bh, mlstm_narrow::ScanGroups<DH>::kGroups), dim3(32), st, a, cm,
+                         kc, nc, cent, nent, ment, nchunks, chunk);
   if (err != cudaSuccess) return err;
-  mlstm_readout_kernel<DH><<<grid, kThreads, 0, st>>>(q, k, v, a, s, cm, cent, nent, ment,
-                                                      out, chunk, scale, eps);
-  return cudaGetLastError();
+  return launch_dependent(mlstm_readout_kernel<DH>, grid, block, st, q, k, v, a, s, cm, cent,
+                          nent, ment, out, chunk, scale, eps);
 }
 
 // The wide path's readout. Grid (bh * nchunks * ceil(chunk / TM), column

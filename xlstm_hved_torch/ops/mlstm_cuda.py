@@ -15,10 +15,14 @@ Three hand-written CUDA kernels port the Pallas TPU kernels of
 The Pallas kernels walk the chunks of a head in order (in reverse for the
 backward). On the card only the chunk-to-chunk carry is sequential, so one
 call of each wrapper is three CUDA launches (DH <= 16): per (head, chunk)
-blocks for the work of each chunk, a short scan over the chunks per head
-for the carry (C*, n*, m* forward; dC, dn, dm backward), then per (head,
-chunk) blocks again. The wide path (DH > 16) runs the forward in three
-launches as well (chunk states, scan, a fused readout per row tile) and the
+blocks for the work of each chunk, a scan over the chunks, one warp per 32
+elements of a head's carry (C*, n* after the scalar m* chain forward; dC,
+dn backward), then per (head, chunk) blocks again, which in the backward
+also add the carried dm (`csrc/mlstm_narrow.cuh`: the rows walked in
+groups of four by eight lanes, `narrow_plan`; the scan and the last launch
+start as programmatic dependents). The wide path (DH > 16) runs the
+forward in three launches as well (chunk states, scan, a fused readout per
+row tile) and the
 backward in seven (rows in two, the readout's state adjoints, scan,
 columns per key tile, the last sums in two); `wide_plan` chooses its row
 tiles and how many blocks share a tile's value columns. The wrappers
@@ -76,6 +80,7 @@ from xlstm_hved_torch.utils import cuda_build
 
 SOURCES = ("mlstm_fwd", "mlstm_bwd")
 NARROW_DH = (8, 16)   # the widths of the narrow kernels' instantiations
+NARROW_SPLIT = 8      # lanes sharing a group of four rows (csrc/mlstm_narrow.cuh, kSplit)
 WIDE_TILE = 32        # the wide path's head-dimension tile
 MAX_DH = 512
 MAX_CHUNK = 128
@@ -171,6 +176,41 @@ def wide_plan(BH: int, nchunks: int, L: int, DP: int) -> WidePlan:
     blocks = {"outer": BH * nchunks * -(-DP // 64) * -(-DP // 128), "readout": split,
               "bwd_gnum": split, "bwd_rows": split, "bwd_cols": tiles(KEY_TILE) * col_groups}
     return WidePlan(row_tile, col_groups, blocks)
+
+
+def narrow_plan(L: int, columns: bool = False):
+    """The causal pairs each lane of a narrow row kernel walks, as
+    csrc/mlstm_narrow.cuh::slot assigns them for a chunk of L rows: lane
+    tid = NARROW_SPLIT p + u of row group p holds two slots of two adjacent
+    rows, the long rows L-1-2p, L-2-2p (live where >= L // 2) and the short
+    rows 2p+1, 2p (live where < L // 2); a row r of a slot takes keys j =
+    first, first + NARROW_SPLIT, ... <= r, with first = u in slot 0 and the
+    positions running on from slot 0's L - 2p keys in slot 1. Returns one
+    list per lane of (row, key) pairs, or with `columns` the backward's
+    columns walk, (key, row) pairs: the slot's keys L-1-hi and L-hi walk the
+    rows t = L-1-hi + first + NARROW_SPLIT m at or below them."""
+    plan = []
+    for tid in range(MAX_CHUNK // 4 * NARROW_SPLIT):
+        p, u = divmod(tid, NARROW_SPLIT)
+        lane = []
+        for s in (0, 1):
+            if s == 0:
+                hi, first = L - 1 - 2 * p, u
+                live = (hi >= L // 2, hi - 1 >= L // 2)
+            else:
+                hi, first = 2 * p + 1, (u - (L - 2 * p)) % NARROW_SPLIT
+                live = (hi < L // 2, hi - 1 < L // 2)
+            for r, alive in zip((hi, hi - 1), live):
+                if not alive:
+                    continue
+                if columns:
+                    key = L - 1 - r
+                    lane += [(key, t) for t in range(L - 1 - hi + first, L, NARROW_SPLIT)
+                             if t >= key]
+                else:
+                    lane += [(r, j) for j in range(first, r + 1, NARROW_SPLIT)]
+        plan.append(lane)
+    return plan
 
 
 def _aligned(t):
@@ -476,8 +516,8 @@ def run_bwd_kernel(q, k, v, g, a, s, cm, cent, nent, ment, eps: float = MLSTM_EP
 # Calls of each wrapper since its count was last set to 0 (read by
 # chip_smoke.py). One call enqueues three CUDA kernels on the narrow path
 # (chunk states, carry scan and readout for the forward wrappers; rows,
-# reverse scan and columns for the backward), three (forward) or seven
-# (backward) on the wide path.
+# reverse scan and columns with the carried dm for the backward), three
+# (forward) or seven (backward) on the wide path.
 run_kernel.launches = 0
 run_states_kernel.launches = 0
 run_bwd_kernel.launches = 0
