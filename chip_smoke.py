@@ -182,6 +182,18 @@ plain twin):
              the ranks' step time beside one rank's at batch 1; the sharded
              15-subset sweep of a 128x192x128 volume over the two ranks
              against the hoisted sweep (phase 4's bounds), seconds each
+ 14. protocol the full training protocol's driver as a user runs it:
+             scripts/torch_full_scale_run.py --quick --subprocess
+             --epoch_chunk 1 --compute_hd95 on the card in a temporary
+             --out_root (32x48x32 volumes, crop 16x32x16, 4+2 subjects,
+             1+2 epochs, Discriminator(64, 3), bf16, remat), each phase a
+             process of its own: pretrain, the finetune's two one-epoch
+             chunks (the second resumes from the first's latest), the
+             15-subset sweep; every phase's rc 0, the finetune CSV one row
+             per epoch, every CSV value finite, 15 finite subset rows, each
+             mLSTM kernel launched in those processes and the plain scan
+             never called (utils/phase_report.py), the phase lines (seconds,
+             peak device memory, peak host RSS, launches) and the seconds
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Bounds:
@@ -2853,6 +2865,81 @@ def check_parallel(dev, root, train_dir, valid_dir, cli_extra=()):
     return {"per_step": ranks["per_step"], "summary": summary}
 
 
+PROTOCOL_SCRIPT = os.path.join("scripts", "torch_full_scale_run.py")
+PROTOCOL_ARGS = ("--quick", "--subprocess", "--epoch_chunk", "1", "--compute_hd95")
+PROTOCOL_TIMEOUT_S = 600
+PROTOCOL_PHASES = [("pretrain", [1, 1]), ("finetune", [1, 1]), ("finetune", [2, 2]),
+                   ("sweep", None)]
+
+
+def _finite_csv(path) -> int:
+    """The rows of a metrics CSV; fails on a value that is not finite."""
+    rows = read_csv(path)
+    for row in rows:
+        for key, value in row.items():
+            if value != "" and not math.isfinite(float(value)):
+                fail(f"protocol: {os.path.basename(os.path.dirname(path))} CSV epoch "
+                     f"{row['Epoch']}: {key} = {value}")
+    return len(rows)
+
+
+def check_protocol():
+    """Phase 14, the full training protocol's driver as a user runs it on
+    the card: scripts/torch_full_scale_run.py --quick --subprocess
+    --epoch_chunk 1 --compute_hd95 in a temporary --out_root, each phase a
+    process of its own (pretrain, the finetune's two one-epoch chunks, the
+    second resuming from the first's latest, the sweep). Every phase's rc
+    0, the finetune CSV one row per epoch, every CSV value finite, 15
+    subset rows of finite Dice, each mLSTM kernel launched in the phases
+    (their processes' counts, which start at 0) and the plain scan never
+    called. Returns the launches and a summary."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_protocol_") as root:
+        t0 = time.perf_counter()
+        cmd = [sys.executable, os.path.join(HERE, PROTOCOL_SCRIPT), *PROTOCOL_ARGS,
+               "--out_root", root]
+        with subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, start_new_session=True) as proc:
+            try:
+                out, _ = proc.communicate(timeout=PROTOCOL_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, 9)   # the driver and the phase it runs
+                proc.communicate()
+                fail(f"protocol: no end within {PROTOCOL_TIMEOUT_S} s")
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"protocol: rc {proc.returncode}\n{out[-6000:]}")
+        with open(os.path.join(root, "phases.json")) as f:
+            phases = json.load(f)["phases"]
+        if [(p["phase"], p["epochs"]) for p in phases] != PROTOCOL_PHASES or any(
+                p["rc"] != 0 for p in phases):
+            fail(f"protocol: phases {[(p['phase'], p['epochs'], p['rc']) for p in phases]}")
+        launches = {k: sum(p["launches"][k] for p in phases) for k in phases[0]["launches"]}
+        unused = [name for name in KERNELS if launches[name] < 1]
+        if unused or launches["plain_scan"]:
+            fail(f"protocol: launches {launches}: {unused} never launched, or the plain "
+                 "scan ran")
+        pre = _finite_csv(os.path.join(root, "XLSTM_HVED_pretrain", "loss_and_metrics.csv"))
+        epochs = _finite_csv(os.path.join(root, "XLSTM_HVED", "loss_and_metrics.csv"))
+        if (pre, epochs) != (1, 2):
+            fail(f"protocol: {pre} pretrain and {epochs} finetune CSV rows, expected 1 and 2")
+        with open(os.path.join(root, "subset_table.txt")) as f:
+            rows = [ln for ln in f if ln.startswith("subset ")]
+        dice = [float(v) for ln in rows for v in re.findall(r"-?\d+\.\d+", ln)[:3]]
+        if len(rows) != 15 or not all(math.isfinite(d) for d in dice):
+            fail(f"protocol: {len(rows)} subset rows, Dice finite "
+                 f"{all(math.isfinite(d) for d in dice)}")
+    for line in out.splitlines():
+        if line.startswith("[phase") and " done in " in line:
+            print(f"  {line}", flush=True)
+    per_phase = " ".join(f"{p['phase']}{'' if p['epochs'] is None else p['epochs']} "
+                         f"{p['seconds']:.1f}s" for p in phases)
+    summary = (f"{PROTOCOL_SCRIPT} {' '.join(PROTOCOL_ARGS)}: {seconds:.1f} s ({per_phase}, "
+               f"each in its process), every rc 0, finetune CSV 2 rows (epoch 2 resumed), "
+               f"15 finite subset rows (all modalities WT/TC/ET {dice[-3:]}), "
+               f"launches {launches}")
+    return {"launches": launches, "seconds": seconds, "summary": summary}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "xlstm_hved_torch")):
         fail("xlstm_hved_torch/ is not beside chip_smoke.py; run it from a checkout")
@@ -3018,6 +3105,14 @@ def main():
         for name in KERNELS:
             rows[name]["launches_parallel_per_rank_step"] = par["per_step"][name]
         done("parallel", t0, par["summary"])
+
+    # ---- 14. protocol: the full training protocol's driver, chunked in processes
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    proto = check_protocol()
+    for name in KERNELS:
+        rows[name]["launches_protocol"] = proto["launches"][name]
+    done("protocol", t0, proto["summary"])
 
     for name, row in rows.items():
         row["max_abs_err"] = worst[name]

@@ -107,3 +107,22 @@ def ndhwc(t):
 
 def max_abs(a, b):
     return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+def jax_param_zeros(name, size=16, **overrides):
+    """A zoo preset's flax parameter tree at a size^3 input, zeros of the
+    shapes `jax.eval_shape` of its init gives (nothing compiles)."""
+    model = jax_model(name, compute_dtype="float32", use_pallas_mlstm=False, **overrides)
+    x = jnp.zeros((1, size, size, size, 4))
+    shapes = jax.eval_shape(lambda: model.init(RNGS, x, deterministic=True, recon=True))
+    return jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes["params"])
+
+
+_LEAF = {"kernel": "weight", "scale": "weight", "alpha": "weight"}
+
+
+def torch_param_name(keystr):
+    """A flax leaf path, as jax.tree_util.keystr prints it, -> the port's
+    parameter name (utils/convert.py's naming)."""
+    keys = [k.strip("'") for k in keystr.strip("[]").split("][")]
+    return ".".join(keys[:-1] + [_LEAF.get(keys[-1], keys[-1])])

@@ -6,15 +6,11 @@ are the JAX `surgical_restore`'s on the same two trees."""
 import json
 import os
 
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
 import _torch_port as tp
 from xlstm_hved_tpu.engine.checkpoint import surgical_restore as jax_surgical_restore
-from xlstm_hved_tpu.models import find_model_using_name as jax_model
 from xlstm_hved_torch.config import TrainConfig
 from xlstm_hved_torch.engine.checkpoint import CheckpointManager, surgical_restore
 from xlstm_hved_torch.engine.train import create_train_state
@@ -102,29 +98,13 @@ def test_round_trip_restores_the_whole_state_bitwise(tmp_path):
     assert set(raw) == {"step", "model", "disc", "opt_g", "opt_d"} and meta["epoch"] == 5
 
 
-def _jax_param_shapes(name, **overrides):
-    model = jax_model(name, compute_dtype="float32", use_pallas_mlstm=False, **overrides)
-    x = jnp.zeros((1, S, S, S, 4))
-    shapes = jax.eval_shape(lambda: model.init(tp.RNGS, x, deterministic=True, recon=True))
-    return jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes["params"])
-
-
-_LEAF = {"kernel": "weight", "scale": "weight", "alpha": "weight"}
-
-
-def _torch_name(keystr):
-    """A flax leaf path, as jax.tree_util.keystr prints it, -> the port's
-    parameter name (utils/convert.py's naming)."""
-    keys = [k.strip("'") for k in keystr.strip("[]").split("][")]
-    return ".".join(keys[:-1] + [_LEAF.get(keys[-1], keys[-1])])
-
-
 @pytest.fixture(scope="module")
 def jax_surgery():
-    target = _jax_param_shapes("XLSTM_HVED")
-    donor = _jax_param_shapes("U_HVEDDuSFEmViLDFNet3D", shared_recon=False)
+    target = tp.jax_param_zeros("XLSTM_HVED", S)
+    donor = tp.jax_param_zeros("U_HVEDDuSFEmViLDFNet3D", S, shared_recon=False)
     _, loaded, skipped = jax_surgical_restore(target, donor)
-    return {_torch_name(k) for k in loaded}, {_torch_name(k) for k in skipped}
+    return ({tp.torch_param_name(k) for k in loaded},
+            {tp.torch_param_name(k) for k in skipped})
 
 
 def test_surgical_restore_matches_jax_names(jax_surgery):

@@ -16,9 +16,16 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "xlstm_hved_tpu")
 
 
+# scripts/torch_control_*.py predate the port: the JAX package's controls
+# against the upstream PyTorch code, which import the JAX package
+PRE_PORT_SCRIPTS = ("torch_control_et.py", "torch_control_recon.py")
+
+
 def _port_sources():
     files = sorted((REPO / "xlstm_hved_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    scripts = sorted(p for p in (REPO / "scripts").glob("torch_*.py")
+                     if p.name not in PRE_PORT_SCRIPTS)
+    return files + [REPO / "chip_smoke.py", REPO / "scripts" / "mlstm_kernel_timing.py"] + scripts
 
 
 def _imported_roots(tree):

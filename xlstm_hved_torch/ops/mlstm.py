@@ -131,6 +131,7 @@ def mlstm_chunkwise(q, k, v, igate, fgate, chunk_size: int = 128,
     sequence shard (`parallel/seq.py`); the zero state (m = -inf) otherwise.
     Returns (B, NH, S, DH) in fp32 (fp64 for fp64 inputs), and with
     `return_state` the final (C, n, m) as well."""
+    mlstm_chunkwise.calls += 1
     B, NH, S, DH = q.shape
     f32 = torch.promote_types(q.dtype, torch.float32)
     qp, kp, vp, ip, fp, L = pad_to_chunks(q, k, v, igate, fgate, chunk_size)
@@ -152,3 +153,9 @@ def mlstm_chunkwise(q, k, v, igate, fgate, chunk_size: int = 128,
         return h
     c_f, n_f, m_f = final
     return h, (c_f.reshape(B, NH, DH, DH), n_f.reshape(B, NH, DH), m_f.reshape(B, NH))
+
+
+# Calls since the count was last set to 0: on the card a model runs the
+# kernels, so a run there that reaches this scan has left the kernel path
+# (read by `utils/phase_report.py` and chip_smoke.py).
+mlstm_chunkwise.calls = 0
