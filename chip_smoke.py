@@ -26,7 +26,12 @@ plain twin):
              shapes: DH 32 to 384, odd widths DH 15 and 45 zero-padded, one
              chunk with S < L) and at the wide path's edges (a last chunk's
              true rows ending inside a row tile, one chunk of 65 rows, DH
-             512, B*NH 1 at DH 384, the e^{-m} branch at DH 384), with the
+             512, B*NH 1 at DH 384, the e^{-m} branch at DH 384), at the gate
+             regimes trained weights reach (an igate ramp 0..200 inside
+             every chunk, a stabiliser below -60, igate +150 then
+             underflow, a padded tail ending inside a chunk; at DH 16 S
+             4096, DH 8 S 32768, DH 128),
+             with the
              wide plan's blocks per launch (the narrow walk's most keys a
              lane) and its time beside the twin's and its bound, the narrow
              kernels' device us per CUDA launch (torch.profiler) at the
@@ -194,6 +199,27 @@ plain twin):
              mLSTM kernel launched in those processes and the plain scan
              never called (utils/phase_report.py), the phase lines (seconds,
              peak device memory, peak host RSS, launches) and the seconds
+ 15. chain   the protocol's chain over K steps (tests/_torch_chain.py's
+             `run_chain`: the pretrain
+             net, 6 pretrain steps with the seg decoders frozen, the surgery
+             into the flagship, 6 G+D steps with Discriminator(8, 3), one
+             evaluation step) at the JAX r5 recipe's crop 64x96x64 (ViL S
+             768) and full width, from JAX's create_train_state draws
+             (tests/torch_protocol_ref.npz) with the pinned subsets, latents
+             and drop of tests/test_torch_protocol_parity.py, in three arms:
+             fp32 through the kernels, fp32 through the plain scan
+             (mlstm_kernel=False), the CLIs' bf16 defaults through the
+             kernels, each the same bits run after run (cuDNN
+             deterministic, phase 9's deterministic upsampling). Per step
+             the loss terms, after each phase the updates,
+             Adam's moments and the BatchNorm statistics' movement: the
+             kernel arm against the plain arm and against the port's CPU
+             chain (stored) to the chain bounds (CHAIN_*), bf16 against fp32
+             to twice the larger of JAX's and the port's own bf16-vs-fp32
+             distance on the same chain on the CPU (`bf16_bounds`);
+             each kernel launched every step of the kernel arms (1 / 1 / 1 a
+             pretrain step, 2 / 2 / 2 a G+D step), none and one plain-scan
+             call a forward in the plain arm
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 Bounds:
@@ -208,6 +234,16 @@ Bounds:
 - mlstm_bwd against its twin: max|d| / max|ref| <= 1e-4 for each of dq, dk,
   dv, ds and dax (the adjoint sums run over up to 48 chunks in another
   order than the twin's batched products).
+- the gate-regime cases (phase 3) hold the same bounds. Two of their
+  inputs are chosen so that the fp32 twin itself is a reference there:
+  the igate ramp's queries and keys are positive (with the ramp the
+  normaliser's floor e^{-m} vanishes, m ~ 200, and where q.n* crosses 0
+  the fp32 twin lies up to 8.5e-2 (scaled) from its fp64 run with signed
+  q and k; 3e-6 with positive ones); and under underflow, where the floor
+  vanishes too and h does not depend on the stabilisers, dax's exact
+  value is 0 (the fp64 twin gives 1e-5 of rounding against a largest ds
+  of 70), so dax is held at 1e-4 of the larger of max|dax| and max|ds|,
+  the scale of the gate gradients whose rounding it carries.
 - the wrapper's gradients against autograd through the plain scan: max|d| /
   max|ref| < 1e-3, the JAX package's own on-chip criterion for its fused
   backward.
@@ -427,7 +463,14 @@ def scaled_err(out, ref) -> float:
 def mlstm_inputs(gen, dev, B, NH, S, DH, kind):
     """q, k, v, igate, fgate as the main paths give them (realistic gates),
     or an edge case: extreme gates, or a tiny attention mass that makes the
-    normaliser's e^{-m} branch live (igate about -8)."""
+    normaliser's e^{-m} branch live (igate about -8); or one of the gate
+    regimes trained weights reach, after tests/test_torch_mlstm.py's cases
+    for the plain scan: an igate ramp 0..200 inside every chunk of
+    128 (with positive q and k, so that q.n* stays away from 0 where the
+    floor e^{-m} vanishes), a stabiliser far below -60, igate +150 on the
+    first 16 positions (the later chunks' state terms underflow to 0), the
+    last 40 positions as padding (igate -1e30, fgate +1e30, zero keys and
+    values)."""
     import torch
 
     q, k, v = (torch.randn(B, NH, S, DH, generator=gen, device=dev) for _ in range(3))
@@ -437,7 +480,30 @@ def mlstm_inputs(gen, dev, B, NH, S, DH, kind):
         ig, fg = 10.0 * ig, fg - 12.0
     elif kind == "denominator":
         ig, fg = 2.0 * ig - 8.0, fg / 3.0
+    elif kind == "wide_igate":
+        ramp = torch.linspace(0.0, 200.0, 128, device=dev).repeat(-(-S // 128))[:S]
+        ig, q, k = ramp.expand(B, NH, S).contiguous(), q.abs(), k.abs()
+    elif kind == "deep_forget":
+        ig, fg = ig - 100.0, fg - 20.0
+    elif kind == "padding_tail":
+        ig[..., -40:], fg[..., -40:] = -1e30, 1e30
+        k[..., -40:, :], v[..., -40:, :] = 0.0, 0.0
+    elif kind == "underflow":
+        ig[..., :16] += 150.0
+        q, k[..., :16, :] = q.abs(), k[..., :16, :].abs()
     return q, k, v, ig, fg
+
+
+# the gate regimes trained weights reach, at the flagship's bottleneck
+# (S 4096, DH 16), the ViL decoder's DH 8 and the wide path's DH 128; the
+# padding ends inside a chunk (S 4000 = 31 chunks and 32 rows, S 32700)
+GATE_REGIMES = ("wide_igate", "deep_forget", "underflow", "padding_tail")
+GATE_REGIME_CASES = tuple(
+    (f"S{S}{tag}_{kind}", B, 4, S, DH, kind)
+    for tag, B, DH, full, padded in (("", 1, 16, 4096, 4000), ("_DH8", 1, 8, 32768, 32700),
+                                      ("_DH128", 2, 128, 4096, 4000))
+    for kind in GATE_REGIMES
+    for S in [padded if kind == "padding_tail" else full])
 
 
 KERNEL_CASES = (("S4096", 1, 4, 4096, 16, "realistic"),
@@ -478,7 +544,8 @@ KERNEL_CASES = (("S4096", 1, 4, 4096, 16, "realistic"),
                 ("S65_DH96_one_chunk", 1, 4, 65, 96, "realistic"),
                 ("S200_DH512", 1, 2, 200, 512, "realistic"),
                 ("S196_DH384_BNH1", 1, 1, 196, 384, "realistic"),
-                ("S196_DH384_denominator", 1, 4, 196, 384, "denominator"))
+                ("S196_DH384_denominator", 1, 4, 196, 384, "denominator"),
+                *GATE_REGIME_CASES)
 # the cases timed into the kernels line: the main paths' bottleneck shape,
 # and the ViL decoder's and the wide path's under their own keys
 TIMED_CASES = ("S4096", "S32768_DH8", "S49152_DH8", "S4096_DH128", "S512_DH160",
@@ -508,6 +575,8 @@ def check_kernels(dev):
 
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, worst = {}, dict.fromkeys(KERNELS, 0.0)
+    regime_worst = dict.fromkeys(KERNELS, 0.0)   # the gate regimes' cases alone
+    regimes = {case[0] for case in GATE_REGIME_CASES}
     for label, B, NH, S, DH, kind in KERNEL_CASES:
         q, k, v, ig, fg = mlstm_inputs(gen, dev, B, NH, S, DH, kind)
         prepared = mc.prepare(q, k, v, ig, fg, 128)
@@ -558,6 +627,9 @@ def check_kernels(dev):
                      f"{['%.3e' % e for e in s_errs]}, m* equal "
                      f"{torch.equal(states[3], ref_states[3])} (bound {KERNEL_SCALED})")
             b_errs = [scaled_err(x, r) for x, r in zip(grads, ref_grads)]
+            if kind == "underflow":   # dax's exact value is 0: the gate gradients' scale
+                b_errs[4] = absmax(grads[4] - ref_grads[4]) / max(
+                    absmax(ref_grads[4]), absmax(ref_grads[3]), 1e-30)
             b_abs = max(absmax(x - r) for x, r in zip(grads, ref_grads))
             if not (finite(*grads) and max(b_errs) <= BWD_SCALED):
                 fail(f"mlstm_bwd {label}: scaled dq/dk/dv/ds/dax "
@@ -581,6 +653,8 @@ def check_kernels(dev):
                  "mlstm_bwd": mlstm_bwd_cost(BH, S, DH, L)}
         for name, e in (("mlstm_fwd", err), ("mlstm_fwd_states", s_abs), ("mlstm_bwd", b_abs)):
             worst[name] = max(worst[name], e)
+            if label in regimes:
+                regime_worst[name] = max(regime_worst[name], e)
         print(f"  {label}: fwd max|d| {err:.3e} scaled {scaled:.3e} | states scaled "
               f"{max(s_errs):.3e} | bwd scaled dq {b_errs[0]:.3e} dk {b_errs[1]:.3e} "
               f"dv {b_errs[2]:.3e} ds {b_errs[3]:.3e} dax {b_errs[4]:.3e}", flush=True)
@@ -605,7 +679,10 @@ def check_kernels(dev):
                               **timing, "library_ms": None}
             elif label in TIMED_CASES:
                 rows[name][label] = timing
-    return rows, worst
+    for name in KERNELS:
+        rows[name]["gate_regimes"] = {"cases": len(GATE_REGIME_CASES),
+                                      "max_abs_err": regime_worst[name]}
+    return rows, worst, regime_worst
 
 
 def check_wrapper_gradients(dev):
@@ -2940,6 +3017,166 @@ def check_protocol():
     return {"launches": launches, "seconds": seconds, "summary": summary}
 
 
+
+# ---- the training chain over K steps (phase 15): tests/_torch_chain.py,
+# which the CPU parity tests and the reference's generator share
+# phase 15's arms: (label, run_chain keywords)
+CHAIN_ARMS = (("kernel", {}),
+              ("plain", {"mlstm_kernel": False}),
+              ("bf16", {"compute_dtype": "bfloat16", "disc_dtype": "bfloat16"}))
+# the vectors the bf16 arm is held on: those where PRECISION_FACTOR times
+# JAX's own bf16 distance stays under 1 (a vector of zeros lies at 1); G's
+# finetune update and moments and the pretrain's second moment lie 0.60 to
+# 2.5 from fp32 in JAX's bf16 chain
+BF16_VECTORS = {"pre": ("delta_g", "mu_g"), "ft": ("bn", "delta_d", "mu_d", "nu_d")}
+
+
+def chain_module():
+    """tests/_torch_chain.py, imported from this checkout."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_chain
+
+    return _torch_chain
+
+
+def chain_reference(ref, run: str) -> dict:
+    """A stored chain of the chain's reference (`run`: jax32, jax16, cpu32
+    or cpu16) in run_chain's layout: the losses and the evaluation, and the
+    updates where they are stored."""
+    rec = {}
+    for phase in ("pre", "ft"):
+        rec[phase] = {"losses": ref[f"{run}.{phase}.losses"]}
+        for name in ("delta_g", "delta_d"):
+            prefix = f"{run}.{phase}.{name}."
+            vec = {k[len(prefix):]: ref[k] for k in ref.files if k.startswith(prefix)}
+            if vec:
+                rec[phase][name] = vec
+    rec["ft"]["eval"] = ref[f"{run}.ft.eval"]
+    return rec
+
+
+def bf16_bounds(ref, tc) -> dict:
+    """The bf16 arm's bounds, from the same chain's bf16-vs-fp32 distances on
+    the CPU (CHAIN_REF): per loss term (the largest relative difference over
+    the steps) and for the evaluation PRECISION_FACTOR times the larger of
+    JAX's (jaxbf16.*) and the port's (cpubf16.*), which holds each of JAX's
+    loss terms within PRECISION_FACTOR (tests/test_torch_protocol_ref.py)
+    but rounds at every op where XLA's CPU backend fuses; per vector of
+    BF16_VECTORS (relative L2) PRECISION_FACTOR times JAX's."""
+    import numpy as np
+
+    def larger(key):
+        return PRECISION_FACTOR * np.maximum(ref[f"jaxbf16.{key}"], ref[f"cpubf16.{key}"])
+
+    out = {"eval": float(larger("eval_rel"))}
+    for phase, keys in (("pre", tc.PRE_LOSS_KEYS), ("ft", tc.FT_LOSS_KEYS)):
+        out[phase] = dict(zip(keys, map(float, larger(f"{phase}.loss_rel"))))
+        for name in BF16_VECTORS[phase]:
+            out[phase][name] = PRECISION_FACTOR * float(ref[f"jaxbf16.{phase}.{name}"])
+            if not out[phase][name] < 1.0:
+                fail(f"chain: the stored bf16 bound of {phase} {name} is "
+                     f"{out[phase][name]:.3f}, which a vector of zeros meets")
+    return out
+
+
+def bf16_chain_faults(dist: dict, bounds: dict, tc) -> list:
+    """The bf16 chain's distances from the fp32 one (`dist`) that break
+    `bf16_bounds`, as lines."""
+    faults = []
+    for phase, keys in (("pre", tc.PRE_LOSS_KEYS), ("ft", tc.FT_LOSS_KEYS)):
+        got = dict(zip(keys, dist[phase]["loss_rel"]))
+        got.update((name, dist[phase][name]["rel_l2"]) for name in BF16_VECTORS[phase])
+        faults += [f"bf16 {phase} {k}: {got[k]:.3e} > {b:.3e}"
+                   for k, b in bounds[phase].items() if not got[k] <= b]
+    if not dist["eval_rel"] <= bounds["eval"]:
+        faults.append(f"bf16 evaluation: {dist['eval_rel']:.3e} > {bounds['eval']:.3e}")
+    return faults
+
+
+def check_chain(dev):
+    """Phase 15, the protocol's chain over K steps on the card, at the JAX
+    r5 recipe's crop (CHAIN_CROP) and full width, from JAX's weights and
+    with the pinned draws of tests/test_torch_protocol_parity.py (CHAIN_REF,
+    `run_chain`): (a) fp32 through the CUDA kernels, (b) fp32 through the
+    plain scan (mlstm_kernel=False), (c) the CLIs' bf16 defaults through the
+    kernels; each with cuDNN deterministic and `deterministic_upsampling`.
+    (a) against (b) and (a) against the port's CPU chain (CHAIN_REF's
+    cpu32) to the chain bounds (CHAIN_*), (c) against (a) to `bf16_bounds`;
+    (a) and (c) launch each kernel every step and never call the plain
+    scan, (b) launches none. Returns the kernel arm's launches and a
+    summary."""
+    import numpy as np
+    import torch
+    from xlstm_hved_torch.utils.phase_report import launch_counts, reset_counts
+
+    tc = chain_module()
+    ref = np.load(tc.CHAIN_REF)
+    weights = tc.chain_weights(ref)
+    batches = tc.chain_batches(tc.CHAIN_CROP)
+    arms, counts, seconds = {}, {}, {}
+    for label, kw in CHAIN_ARMS:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        # each arm the same bits run after run (as phase 9's gradients): the
+        # chain amplifies any rounding, so the atomics of cuDNN's backward and
+        # of the upsampling's would move the distances from run to run
+        torch.backends.cudnn.deterministic = True
+        try:
+            with deterministic_upsampling():
+                arms[label] = tc.run_chain(dev, weights, batches, **kw)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        counts[label] = launch_counts()
+        for phase in ("pre", "ft"):
+            if not np.isfinite(arms[label][phase]["losses"]).all():
+                fail(f"chain {label}: a {phase} loss is not finite")
+        print(f"  arm {label}: {seconds[label]:.1f} s, launches {counts[label]}", flush=True)
+    # every step of the kernel arms launches each kernel (one of each a
+    # pretrain step, two a G+D step) and never calls the plain scan; every
+    # step of the plain arm launches none and calls the scan once a forward
+    for label in ("kernel", "bf16", "plain"):
+        for phase, per in (("pre", 1), ("ft", 2)):
+            kernel = label != "plain"
+            want = dict.fromkeys(KERNELS, per if kernel else 0)
+            want["plain_scan"] = 0 if kernel else per
+            for i, got in enumerate(arms[label][phase]["launches"]):
+                if got != want:
+                    fail(f"chain {label}: {phase} step {i} launches {got}, expected {want}")
+        total = {k: sum(s[k] for p in ("pre", "ft") for s in arms[label][p]["launches"])
+                 for k in counts[label]}
+        print(f"  arm {label}: per step launches as expected; the steps {total}", flush=True)
+    faults = []
+    for label, got, want in (("kernel vs plain", arms["kernel"], arms["plain"]),
+                             ("kernel vs CPU", arms["kernel"], chain_reference(ref, "cpu32"))):
+        dist = tc.chain_distances(got, want)
+        print(f"  {label}:", flush=True)
+        for line in tc.describe_distances(dist):
+            print(f"    {line}", flush=True)
+        faults += [f"{label}: {f}" for f in tc.chain_faults(dist)]
+    dist = tc.chain_distances(arms["bf16"], arms["kernel"])
+    bounds = bf16_bounds(ref, tc)
+    print("  bf16 vs fp32 (kernel arms):", flush=True)
+    for line in tc.describe_distances(dist):
+        print(f"    {line}", flush=True)
+    print("    bounds: " + "; ".join(
+        f"{phase} " + ", ".join(f"{k} {b:.3e}" for k, b in bounds[phase].items())
+        for phase in ("pre", "ft")) + f"; evaluation {bounds['eval']:.3e}", flush=True)
+    faults += bf16_chain_faults(dist, bounds, tc)
+    if faults:
+        fail("chain: " + "; ".join(faults))
+    k_ft = arms["kernel"]["ft"]["losses"]
+    summary = (f"{tc.CHAIN_K_PRE} pretrain + {tc.CHAIN_K_FT} G+D steps at {tc.CHAIN_CROP} from "
+               f"JAX's weights, arms kernel / plain / bf16 {seconds['kernel']:.1f} / "
+               f"{seconds['plain']:.1f} / {seconds['bf16']:.1f} s; the kernel arm within the "
+               f"chain bounds of the plain arm and of the CPU path, bf16 within "
+               f"{PRECISION_FACTOR} x the CPU's bf16 distances; launches {counts['kernel']}; "
+               f"last G loss {k_ft[-1][0]:.4f}")
+    return {"launches": counts["kernel"], "summary": summary}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "xlstm_hved_torch")):
         fail("xlstm_hved_torch/ is not beside chip_smoke.py; run it from a checkout")
@@ -2981,11 +3218,13 @@ def main():
 
     # ---- 3. kernels against their twins
     t0 = time.perf_counter()
-    rows, worst = check_kernels(dev)
+    rows, worst, regime_worst = check_kernels(dev)
     check_wrapper_gradients(dev)
     done("kernel", t0, "mlstm_fwd, mlstm_fwd_states and mlstm_bwd agree with their twins "
                        f"on {len(KERNEL_CASES)} cases; worst max|d| " +
-                       " ".join(f"{n} {e:.3e}" for n, e in worst.items()))
+                       " ".join(f"{n} {e:.3e}" for n, e in worst.items()) +
+                       f"; the {len(GATE_REGIME_CASES)} gate-regime cases' worst " +
+                       " ".join(f"{n} {e:.3e}" for n, e in regime_worst.items()))
 
     # ---- 4. forward: the flagship and the ViL-decoder preset
     t0 = time.perf_counter()
@@ -3113,6 +3352,14 @@ def main():
     for name in KERNELS:
         rows[name]["launches_protocol"] = proto["launches"][name]
     done("protocol", t0, proto["summary"])
+
+    # ---- 15. chain: the protocol's chain over K steps, three arms
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    chain = check_chain(dev)
+    for name in KERNELS:
+        rows[name]["launches_chain"] = chain["launches"][name]
+    done("chain", t0, chain["summary"])
 
     for name, row in rows.items():
         row["max_abs_err"] = worst[name]

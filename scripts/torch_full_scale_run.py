@@ -192,7 +192,10 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
+def main(argv=None, extra=()):
+    """The protocol for the flags `argv`; `extra` goes to every CLI (as
+    scripts/torch_protocol_seeds.py gives each run its `--seed`). Returns
+    the summary."""
     args = parser().parse_args(argv)
     from xlstm_hved_torch.models import resolve_device
 
@@ -231,6 +234,7 @@ def main(argv=None):
         "--remat",
         "--validate_every", "5",
         "--device", args.device,
+        *extra,
     ]
     inprocess = (args.inprocess or args.quick) and not args.force_subprocess
     run = run_inprocess if inprocess else run_cli

@@ -49,6 +49,17 @@ def _inputs(dev, B, NH, S, DH, seed=0, case="realistic"):
     fg = 3.0 + 3.0 * torch.rand(B, NH, S, generator=g, device=dev)
     if case == "denominator":  # tiny attention mass: the e^{-m} branch is live
         ig, fg = ig * 2.0 - 8.0, fg / 3.0
+    elif case == "wide_igate":     # igate ramp 0..200 inside every chunk, q.n* > 0
+        ramp = torch.linspace(0.0, 200.0, 128, device=dev).repeat(-(-S // 128))[:S]
+        ig, q, k = ramp.expand(B, NH, S).contiguous(), q.abs(), k.abs()
+    elif case == "deep_forget":    # m_t far below -60: the clamped normaliser
+        ig, fg = ig - 100.0, fg - 20.0
+    elif case == "padding_tail":   # the last 40 positions as padding
+        ig[..., -40:], fg[..., -40:] = -1e30, 1e30
+        k[..., -40:, :], v[..., -40:, :] = 0.0, 0.0
+    elif case == "underflow":      # igate +150 in the first 16 positions: the later
+        ig[..., :16] += 150.0      # chunks' state terms underflow to 0
+        q, k[..., :16, :] = q.abs(), k[..., :16, :].abs()
     return q, k, v, ig, fg
 
 
@@ -113,6 +124,43 @@ def test_states_and_backward_kernels_match_twins(dev, B, NH, S, DH, L, case):
     for got, want in zip(grads, grads_ref):
         assert torch.isfinite(got).all()
         assert _scaled_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["wide_igate", "deep_forget", "underflow", "padding_tail"])
+@pytest.mark.parametrize("B,NH,S,DH", [(1, 4, 4096, 16), (1, 4, 32768, 8), (2, 4, 4096, 128)])
+def test_kernels_at_trained_gate_regimes(dev, B, NH, S, DH, case):
+    """The three kernels against their twins on the gate regimes trained
+    weights reach (tests/test_torch_mlstm.py's cases for the plain scan), at
+    the flagship's, the ViL decoder's and the wide path's widths, at
+    chip_smoke.py's bounds; the padded tail ends inside a chunk. Under
+    underflow dax's exact value is 0 (h does not depend on the
+    stabilisers), so it is held at the scale of the gate gradients, the
+    larger of max|dax| and max|ds|, as chip_smoke.py phase 3 holds it."""
+    if case == "padding_tail":
+        S -= 96 if S == 4096 else 68
+    raw = _inputs(dev, B, NH, S, DH, seed=3, case=case)
+    prepared = mlstm_cuda.prepare(*raw, 128)
+    out = mlstm_cuda.run_kernel(*prepared, dh=DH, seq_len=S)
+    states = mlstm_cuda.run_states_kernel(*prepared, dh=DH, seq_len=S)
+    states_ref = mlstm_cuda.mlstm_forward_states_reference(*prepared, dh=DH)
+    g = torch.randn_like(prepared[0])
+    g[..., DH:] = 0.0
+    g.view(-1, g.shape[-2], g.shape[-1])[:, S:] = 0.0
+    args = (*prepared[:3], g, *prepared[3:], *states_ref[1:])
+    grads = mlstm_cuda.run_bwd_kernel(*args, dh=DH, seq_len=S)
+    grads_ref = mlstm_cuda.mlstm_backward_reference(*args, dh=DH)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in (out, *states, *grads))
+    assert torch.equal(states[3], states_ref[3])
+    assert float((out - states_ref[0]).abs().max()) <= 5e-4
+    assert _scaled_err(out, states_ref[0]) <= 2e-5
+    for got, want in zip(states[:3], states_ref[:3]):
+        assert _scaled_err(got, want) <= 2e-5
+    for got, want in zip(grads[:4], grads_ref[:4]):
+        assert _scaled_err(got, want) <= 1e-4
+    dax_scale = max(float(grads_ref[4].abs().max()),
+                    float(grads_ref[3].abs().max()) if case == "underflow" else 0.0)
+    assert float((grads[4] - grads_ref[4]).abs().max()) <= 1e-4 * dax_scale
 
 
 @pytest.mark.parametrize("S,DH", [(4096, 16), (32768, 8), (49152, 8)])

@@ -25,7 +25,9 @@ def _port_sources():
     files = sorted((REPO / "xlstm_hved_torch").rglob("*.py"))
     scripts = sorted(p for p in (REPO / "scripts").glob("torch_*.py")
                      if p.name not in PRE_PORT_SCRIPTS)
-    return files + [REPO / "chip_smoke.py", REPO / "scripts" / "mlstm_kernel_timing.py"] + scripts
+    # tests/_torch_chain.py: chip_smoke.py's phase 15 runs it on the card
+    return files + [REPO / "chip_smoke.py", REPO / "scripts" / "mlstm_kernel_timing.py",
+                    REPO / "tests" / "_torch_chain.py"] + scripts
 
 
 def _imported_roots(tree):

@@ -352,9 +352,16 @@ def test_subset_sampler_statistics():
     assert abs(float(drop.float().mean()) - 0.5 + 0.5 / 16 / 4) < 0.02
 
 
+def jax_pretrain_cfg():
+    from xlstm_hved_tpu.config import get_config
+    return get_config("XLSTM_HVED", shared_recon=False, compute_dtype="float32",
+                      use_pallas_mlstm=False)
+
+
 @pytest.fixture(scope="module")
 def jax_inits():
     jmodel = jax_hved.HVEDFusionNet(jax_model_cfg())
+    jpre = jax_hved.HVEDFusionNet(jax_pretrain_cfg())
     jdisc = jax_hved.Discriminator(f_maps=8, kernel=3)
     x = jnp.zeros((1, S, S, S, 4))
     out = {}
@@ -363,8 +370,10 @@ def jax_inits():
     with jax.default_prng_impl("rbg"):
         g = jax.jit(lambda k: jmodel.init({"params": k, "latent": k}, x, deterministic=True,
                                           recon=True))(jax.random.PRNGKey(0))["params"]
+        pre = jax.jit(lambda k: jpre.init({"params": k, "latent": k}, x, deterministic=True,
+                                          recon=True))(jax.random.PRNGKey(3))["params"]
         d = jax.jit(jdisc.init)(jax.random.PRNGKey(1), jnp.zeros((1, S, S, S, 7)))["params"]
-        for name, tree in (("g", g), ("d", d)):
+        for name, tree in (("g", g), ("pre", pre), ("d", d)):
             ref = jax.jit(jax_reference_init)(tree, jax.random.PRNGKey(2))
             out[name] = (params_from_jax(jax.device_get(tree)),
                          params_from_jax(jax.device_get(ref)))
@@ -379,10 +388,14 @@ def _rms(t, centre=0.0):
 def test_init_schemes_match_jax(jax_inits, scheme):
     """The set of tensors reference_init changes, and every tensor's spread
     under each scheme, against the JAX package (same distributions, other
-    draws: the tolerance is six standard errors of an RMS over n values)."""
-    for part in ("g", "d"):
-        module = (find_model_using_name("XLSTM_HVED", device="cpu") if part == "g"
-                  else Discriminator(f_maps=8, kernel=3))
+    draws: the tolerance is six standard errors of an RMS over n values),
+    for the flagship, the pretrain net (a recon decoder per modality,
+    `shared_recon=False`) and D."""
+    for part in ("g", "pre", "d"):
+        module = {"g": lambda: find_model_using_name("XLSTM_HVED", device="cpu"),
+                  "pre": lambda: find_model_using_name("XLSTM_HVED", device="cpu",
+                                                       shared_recon=False),
+                  "d": lambda: Discriminator(f_maps=8, kernel=3)}[part]()
         gen = torch.Generator().manual_seed(3)
         default_init(module, gen)
         before = {k: v.clone() for k, v in module.state_dict().items()}
