@@ -29,7 +29,8 @@ Subpackages
            signed distance maps, the datasets and the prefetching loader
 - cli:     the train, pretrain and check entry points
 - utils:   subset table and samplers, JAX-tree weight conversion, CUDA build,
-           CSV logs, timers and the profiler scope
+           CSV logs, `span` (the program's named ranges on the profiler's
+           clock, and the CLIs' wall-clock tables) and the profiler scope
 """
 
 __version__ = "0.1.0"

@@ -9,8 +9,9 @@ The net (default U_HVEDDuSFEmViLDFNet3D) has a recon decoder per modality
 frozen, and the loss is MSE recon + beta * KL. Every epoch validates: MSE,
 PSNR and SSIM of the all-modality and the instance-missing recon (eval mode,
 deterministic latents). Checkpoints go to <out_dir>/<name>_pretrain, whose
-best_vloss the train CLI's --pretrain_weights reads. `main(argv)` returns a
-summary as the train CLI's does.
+best_vloss the train CLI's --pretrain_weights reads. `--profile_dir` writes a
+torch.profiler trace of the epochs there, as the train CLI does. `main(argv)`
+returns a summary as the train CLI's does.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from xlstm_hved_torch.engine.train import (create_train_state, freeze_mask_for,
 from xlstm_hved_torch.metrics import psnr, ssim3d
 from xlstm_hved_torch.models import Discriminator, find_model_using_name
 from xlstm_hved_torch.nn.blocks import compute_dtype
-from xlstm_hved_torch.utils.logging import CSVLogger, RunningAverage, timed_iter
+from xlstm_hved_torch.utils.logging import (CSVLogger, RunningAverage, profiler_trace, span,
+                                            timed_iter)
 
 CSV_FIELDS = ["Epoch", "Train_Loss", "Valid_Loss", "PSNR_f", "SSIM_f",
               "PSNR_m", "SSIM_m"]
@@ -82,50 +84,49 @@ def main(argv=None):
                  if args.stop_after_epoch else args.num_epochs)
 
     summary = {"epochs": []}
-    for epoch in range(epoch_start, end_epoch + 1):
-        t0 = time.perf_counter()
-        spans = dict.fromkeys(("train_wait", "train_batch", "train_step", "valid_wait",
-                               "valid_batch", "valid_step"), 0.0)
-        tr_loss = RunningAverage()
-        steps = 0
-        loader = prefetch_loader(trainset, args.train_batch, shuffle=True,
-                                 seed=args.seed + epoch)
-        for items in timed_iter(loader, spans, "train_wait"):
-            t = time.perf_counter()
-            x, _xm, _mask = assemble_train_batch(items, cfg.crop_size, state.rng, device)
-            spans["train_batch"] += time.perf_counter() - t
-            t = time.perf_counter()
-            state, metrics = step(state, x)
-            tr_loss.update(float(metrics["loss"]))
-            spans["train_step"] += time.perf_counter() - t
-            steps += 1
-            del x, _xm, _mask, metrics
+    with profiler_trace(args.profile_dir or None):
+        for epoch in range(epoch_start, end_epoch + 1):
+            t0 = time.perf_counter()
+            spans = dict.fromkeys(("train_wait", "train_batch", "train_step", "valid_wait",
+                                   "valid_batch", "valid_step"), 0.0)
+            tr_loss = RunningAverage()
+            steps = 0
+            loader = prefetch_loader(trainset, args.train_batch, shuffle=True,
+                                     seed=args.seed + epoch)
+            for items in timed_iter(loader, spans, "train_wait"):
+                with span("train_batch", spans):
+                    x, _xm, _mask = assemble_train_batch(items, cfg.crop_size, state.rng,
+                                                         device)
+                with span("train_step", spans):
+                    state, metrics = step(state, x)
+                    tr_loss.update(float(metrics["loss"]))
+                steps += 1
+                del x, _xm, _mask, metrics
 
-        va = {k: RunningAverage() for k in VALID_KEYS}
-        items_seen = 0
-        loader = prefetch_loader(validset, args.valid_batch, shuffle=False, seed=0)
-        for items in timed_iter(loader, spans, "valid_wait"):
-            t = time.perf_counter()
-            x, xm, _mask = assemble_eval_batch(items, cfg.crop_size, device)
-            spans["valid_batch"] += time.perf_counter() - t
-            t = time.perf_counter()
-            for k, v in validate_recon(model, x, xm).items():
-                va[k].update(v)
-            spans["valid_step"] += time.perf_counter() - t
-            items_seen += len(items)
-            del x, xm, _mask
+            va = {k: RunningAverage() for k in VALID_KEYS}
+            items_seen = 0
+            loader = prefetch_loader(validset, args.valid_batch, shuffle=False, seed=0)
+            for items in timed_iter(loader, spans, "valid_wait"):
+                with span("valid_batch", spans):
+                    x, xm, _mask = assemble_eval_batch(items, cfg.crop_size, device)
+                with span("valid_step", spans):
+                    for k, v in validate_recon(model, x, xm).items():
+                        va[k].update(v)
+                items_seen += len(items)
+                del x, xm, _mask
 
-        best_vloss, _ = ckpt.save_epoch(state, epoch, va["vloss"].avg, 0.0, best_vloss, 0.0)
-        csvlog.append({"Epoch": epoch, "Train_Loss": tr_loss.avg,
-                       "Valid_Loss": va["vloss"].avg,
-                       "PSNR_f": va["psnr_f"].avg, "SSIM_f": va["ssim_f"].avg,
-                       "PSNR_m": va["psnr_m"].avg, "SSIM_m": va["ssim_m"].avg})
-        seconds = time.perf_counter() - t0
-        print(epoch_line(epoch, args.num_epochs, seconds, spans,
-                         f"loss {tr_loss.avg:.4f} vloss {va['vloss'].avg:.4f} "
-                         f"PSNR_m {va['psnr_m'].avg:.2f}"), flush=True)
-        summary["epochs"].append(dict(epoch=epoch, seconds=seconds, steps=steps,
-                                      valid_items=items_seen, spans=spans))
+            best_vloss, _ = ckpt.save_epoch(state, epoch, va["vloss"].avg, 0.0, best_vloss,
+                                            0.0)
+            csvlog.append({"Epoch": epoch, "Train_Loss": tr_loss.avg,
+                           "Valid_Loss": va["vloss"].avg,
+                           "PSNR_f": va["psnr_f"].avg, "SSIM_f": va["ssim_f"].avg,
+                           "PSNR_m": va["psnr_m"].avg, "SSIM_m": va["ssim_m"].avg})
+            seconds = time.perf_counter() - t0
+            print(epoch_line(epoch, args.num_epochs, seconds, spans,
+                             f"loss {tr_loss.avg:.4f} vloss {va['vloss'].avg:.4f} "
+                             f"PSNR_m {va['psnr_m'].avg:.2f}"), flush=True)
+            summary["epochs"].append(dict(epoch=epoch, seconds=seconds, steps=steps,
+                                          valid_items=items_seen, spans=spans))
     summary["step"] = state.step
     return summary
 

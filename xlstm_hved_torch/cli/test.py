@@ -13,7 +13,7 @@ five subsets at a time. It prints Dice WT / TC / ET per subset (with HD95,
 and PSNR / SSIM of the recon, when asked) and the average, and exports the
 all-modality labels (WT -> 2, TC -> 1, ET -> 4) as <subject>-pred.nii.gz
 and mid-slice overlays as PNGs. One device (`--device`, the CUDA card by
-default).
+default); `--profile_dir` writes a torch.profiler trace of the volumes there.
 
 `main(argv)` returns a summary: the (15, 3) mean Dice and HD95, the (15,)
 PSNR and SSIM, the volume count and, per volume, its seconds and where they
@@ -38,6 +38,7 @@ from xlstm_hved_torch.engine.evaluate import (default_apply_fn, label_volume_fro
 from xlstm_hved_torch.metrics import dice_regions, hd95_regions, psnr, ssim3d
 from xlstm_hved_torch.models import find_model_using_name
 from xlstm_hved_torch.nn.init_schemes import default_init
+from xlstm_hved_torch.utils.logging import profiler_trace, span
 from xlstm_hved_torch.utils.subsets import SUBSETS_MODALITIES
 
 SPANS = ("load", "transform_copy", "sweep", "dice", "hd95", "recon_metrics", "export")
@@ -90,57 +91,52 @@ def main(argv=None):
     dice_sums, hd_sums = np.zeros((n_sub, 3)), np.zeros((n_sub, 3))
     psnr_sums, ssim_sums = np.zeros(n_sub), np.zeros(n_sub)
     per_volume = []
-    for i in range(len(validset)):
-        t0 = t = time.perf_counter()
-        spans = dict.fromkeys(SPANS, 0.0)
+    with profiler_trace(args.profile_dir or None):
+        for i in range(len(validset)):
+            t0 = time.perf_counter()
+            spans = dict.fromkeys(SPANS, 0.0)
+            with span("load", spans):
+                item = validset.load(i)
+            if item is None:
+                continue
+            subject = validset.subjects[i]
+            with span("transform_copy", spans):
+                x, _xm, mask = assemble_eval_batch([item], crop, device)
+                del item, _xm
+            with span("sweep", spans):
+                out = sweep(model, x)
+                segs, recons = out if args.eval_recon else (out, None)
+                _sync(device)
+            with span("dice", spans):
+                # the 45 Dice values of the volume in one device-to-host copy
+                dice_sums += dice_regions(segs, mask).double().cpu().numpy()
+            if args.compute_hd95:
+                with span("hd95", spans):
+                    hd_sums += hd95_regions((segs > 0.5).cpu().numpy(), mask.cpu().numpy())
+            if args.eval_recon:
+                with span("recon_metrics", spans):
+                    values = torch.stack([torch.stack([psnr(recons[s], x),
+                                                       ssim3d(recons[s], x)])
+                                          for s in range(n_sub)]).double().cpu().numpy()
+                    psnr_sums += values[:, 0]
+                    ssim_sums += values[:, 1]
+            if args.save_plots_dir or args.save_pred_dir:
+                with span("export", spans):
+                    seg_all = segs[-1, 0].cpu().numpy()  # the all-modality subset
+                    if args.save_plots_dir:
+                        from xlstm_hved_torch.utils.visualize import plot_segm
 
-        def lap(name):
-            nonlocal t
-            now = time.perf_counter()
-            spans[name] += now - t
-            t = now
-
-        item = validset.load(i)
-        lap("load")
-        if item is None:
-            continue
-        subject = validset.subjects[i]
-        x, _xm, mask = assemble_eval_batch([item], crop, device)
-        del item, _xm
-        lap("transform_copy")
-        out = sweep(model, x)
-        segs, recons = out if args.eval_recon else (out, None)
-        _sync(device)
-        lap("sweep")
-        # the 45 Dice values of the volume in one device-to-host copy
-        dice_sums += dice_regions(segs, mask).double().cpu().numpy()
-        lap("dice")
-        if args.compute_hd95:
-            hd_sums += hd95_regions((segs > 0.5).cpu().numpy(), mask.cpu().numpy())
-            lap("hd95")
-        if args.eval_recon:
-            values = torch.stack([torch.stack([psnr(recons[s], x), ssim3d(recons[s], x)])
-                                  for s in range(n_sub)]).double().cpu().numpy()
-            psnr_sums += values[:, 0]
-            ssim_sums += values[:, 1]
-            lap("recon_metrics")
-        if args.save_plots_dir or args.save_pred_dir:
-            seg_all = segs[-1, 0].cpu().numpy()  # the all-modality subset
-            if args.save_plots_dir:
-                from xlstm_hved_torch.utils.visualize import plot_segm
-
-                plot_segm(args.save_plots_dir, subject, x[0].cpu().numpy(), seg_all,
-                          mask[0].cpu().numpy())
-            if args.save_pred_dir:
-                os.makedirs(args.save_pred_dir, exist_ok=True)
-                write_nifti(os.path.join(args.save_pred_dir, f"{subject}-pred.nii.gz"),
-                            label_volume_from_probs(seg_all))
-            lap("export")
-        del x, mask, segs, recons, out
-        seconds = time.perf_counter() - t0
-        per_volume.append(dict(subject=subject, seconds=seconds, spans=spans))
-        print(f"volume {subject}: {seconds:.2f}s ("
-              + " ".join(f"{k} {v:.2f}s" for k, v in spans.items()) + ")", flush=True)
+                        plot_segm(args.save_plots_dir, subject, x[0].cpu().numpy(), seg_all,
+                                  mask[0].cpu().numpy())
+                    if args.save_pred_dir:
+                        os.makedirs(args.save_pred_dir, exist_ok=True)
+                        write_nifti(os.path.join(args.save_pred_dir, f"{subject}-pred.nii.gz"),
+                                    label_volume_from_probs(seg_all))
+            del x, mask, segs, recons, out
+            seconds = time.perf_counter() - t0
+            per_volume.append(dict(subject=subject, seconds=seconds, spans=spans))
+            print(f"volume {subject}: {seconds:.2f}s ("
+                  + " ".join(f"{k} {v:.2f}s" for k, v in spans.items()) + ")", flush=True)
 
     count = len(per_volume)
     n = max(count, 1)

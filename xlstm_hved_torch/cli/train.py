@@ -45,7 +45,7 @@ from xlstm_hved_torch.models import Discriminator, find_model_using_name
 from xlstm_hved_torch.nn.blocks import compute_dtype
 from xlstm_hved_torch.parallel.mesh import (allreduce_averages, in_lockstep, make_mesh,
                                             replicate)
-from xlstm_hved_torch.utils.logging import (CSVLogger, RunningAverage, profiler_trace,
+from xlstm_hved_torch.utils.logging import (CSVLogger, RunningAverage, profiler_trace, span,
                                             timed_iter)
 
 CSV_FIELDS = [
@@ -122,18 +122,17 @@ def main(argv=None):
             loader = prefetch_loader(trainset, args.train_batch, shuffle=True,
                                      seed=args.seed + epoch, shard=data_shard)
             for items in timed_iter(in_lockstep(loader, mesh), spans, "train_wait"):
-                t = time.perf_counter()
-                x, _xm, mask = assemble_train_batch(items, cfg.crop_size, state.rng, device)
-                sdm = None
-                if cfg.use_sdm:
-                    sdm = torch.from_numpy(
-                        compute_sdm(mask.cpu().numpy() > 0.5)).to(device)
-                spans["train_batch"] += time.perf_counter() - t
-                t = time.perf_counter()
-                state, metrics = train_step(state, x, mask, sdm)
-                for k, v in read_metrics(metrics, TRAIN_KEYS).items():
-                    tr[k].update(v)
-                spans["train_step"] += time.perf_counter() - t
+                with span("train_batch", spans):
+                    x, _xm, mask = assemble_train_batch(items, cfg.crop_size, state.rng,
+                                                        device)
+                    sdm = None
+                    if cfg.use_sdm:
+                        sdm = torch.from_numpy(
+                            compute_sdm(mask.cpu().numpy() > 0.5)).to(device)
+                with span("train_step", spans):
+                    state, metrics = train_step(state, x, mask, sdm)
+                    for k, v in read_metrics(metrics, TRAIN_KEYS).items():
+                        tr[k].update(v)
                 steps += 1
                 del x, mask, sdm, metrics
 
@@ -144,13 +143,11 @@ def main(argv=None):
                 loader = prefetch_loader(validset, args.valid_batch, shuffle=False, seed=0,
                                          shard=data_shard)
                 for items in timed_iter(in_lockstep(loader, mesh), spans, "valid_wait"):
-                    t = time.perf_counter()
-                    x, xm, mask = assemble_eval_batch(items, cfg.crop_size, device)
-                    spans["valid_batch"] += time.perf_counter() - t
-                    t = time.perf_counter()
-                    for k, v in read_metrics(eval_step(x, xm, mask), VALID_KEYS).items():
-                        va[k].update(v)
-                    spans["valid_step"] += time.perf_counter() - t
+                    with span("valid_batch", spans):
+                        x, xm, mask = assemble_eval_batch(items, cfg.crop_size, device)
+                    with span("valid_step", spans):
+                        for k, v in read_metrics(eval_step(x, xm, mask), VALID_KEYS).items():
+                            va[k].update(v)
                     items_seen += len(items)
                     del x, xm, mask
 

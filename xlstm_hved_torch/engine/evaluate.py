@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from xlstm_hved_torch.parallel.mesh import all_gather
+from xlstm_hved_torch.utils.logging import span
 from xlstm_hved_torch.utils.subsets import SUBSET_MASKS
 
 
@@ -124,7 +125,9 @@ def make_subset_sweep(apply_fn: Callable, patch: Sequence[int],
 def _hoisted_sweep_body(patch: Sequence[int], stride: Optional[Sequence[int]],
                         out_channels: int, recon_channels: int):
     """body(net, x, masks) -> seg (S, B, out_channels, ...) and, with recon
-    channels, recon: the hoisted sweep over the (S, 4) keep-masks `masks`."""
+    channels, recon: the hoisted sweep over the (S, 4) keep-masks `masks`.
+    Per window the prefix is a `span("sweep.prefix")` and each subset's
+    mask, suffix forward and accumulation a `span("sweep.suffix")`."""
     patch = tuple(patch)
     stride = tuple(stride) if stride is not None else patch
     recon = recon_channels > 0
@@ -143,14 +146,16 @@ def _hoisted_sweep_body(patch: Sequence[int], stride: Optional[Sequence[int]],
             win = (slice(None), slice(None), slice(d, d + patch[0]),
                    slice(h, h + patch[1]), slice(w, w + patch[2]))
             crop = x[win]
-            pref = net(crop, mode="prefix", deterministic=True)
+            with span("sweep.prefix"):
+                pref = net(crop, mode="prefix", deterministic=True)
             for s in range(n):
-                crop_m = crop * masks[s].reshape(1, M, 1, 1, 1).to(crop.dtype)
-                out = net(crop_m, keep=masks[s], mode="suffix", prefix=pref,
-                          recon=recon, deterministic=True)
-                seg_sum[s][win] += out.seg.float()
-                if recon:
-                    rec_sum[s][win] += out.recon.float()
+                with span("sweep.suffix"):
+                    crop_m = crop * masks[s].reshape(1, M, 1, 1, 1).to(crop.dtype)
+                    out = net(crop_m, keep=masks[s], mode="suffix", prefix=pref,
+                              recon=recon, deterministic=True)
+                    seg_sum[s][win] += out.seg.float()
+                    if recon:
+                        rec_sum[s][win] += out.recon.float()
             del pref
             count[win] += 1.0
         if not recon:

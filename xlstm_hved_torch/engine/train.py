@@ -33,6 +33,11 @@ The pretrain step (`make_pretrain_step`) trains the recon decoders alone:
 seg branch off, BatchNorm on its running statistics, MSE recon + beta * KL,
 with the seg decoders frozen (`freeze_mask_for`).
 
+Each phase of a step is a `utils.logging.span`: `train.step` around the
+whole, `train.g_forward` (the G objective), `train.g_backward` and
+`train.g_adam` (the masked update, shared with the pretrain step),
+`train.d_forward`, `train.d_backward`, `train.d_adam`.
+
 Randomness comes from the state's generators: subset draws from a CPU
 generator, the latent noise from one on the model's device. The G and D
 forwards run on whatever device the modules are on; the mLSTM goes through
@@ -55,6 +60,7 @@ from xlstm_hved_torch.losses import (boundary_loss, compute_kld_subsets, dice_lo
 from xlstm_hved_torch.metrics import dice_coefficient, dice_region, psnr
 from xlstm_hved_torch.nn.init_schemes import INIT_SCHEMES, default_init
 from xlstm_hved_torch.parallel.mesh import average_gradients, average_metrics
+from xlstm_hved_torch.utils.logging import span
 from xlstm_hved_torch.utils.subsets import sample_subset_index, subset_mask
 
 # channels of the discriminator input: 3 seg + 4 attention-weighted recon
@@ -240,13 +246,15 @@ def _masked_g_update(model: nn.Module, freeze_mask: Optional[Mapping[str, float]
     frozen = [p for p, m in zip(params, scale) if m == 0.0]
 
     def update(opt: torch.optim.Optimizer, loss, lr: float):
-        grads = [g if m == 1.0 else g * m
-                 for g, m in zip(average_gradients(_grads(loss, params)), scale)]
-        kept = [p.detach().clone() for p in frozen]
-        _step(opt, params, grads, lr)
-        with torch.no_grad():
-            for p, old in zip(frozen, kept):
-                p.copy_(old)
+        with span("train.g_backward"):
+            grads = average_gradients(_grads(loss, params))
+        with span("train.g_adam"):
+            grads = [g if m == 1.0 else g * m for g, m in zip(grads, scale)]
+            kept = [p.detach().clone() for p in frozen]
+            _step(opt, params, grads, lr)
+            with torch.no_grad():
+                for p, old in zip(frozen, kept):
+                    p.copy_(old)
 
     return update
 
@@ -268,30 +276,37 @@ def make_train_step(model: nn.Module, disc: nn.Module, cfg: TrainConfig,
     params_d = list(disc.parameters())
 
     def train_step(state: TrainState, x, mask, sdm=None):
-        subset_idx = sample_subset_index(state.rng, 1, 3)
-        keep = subset_mask(subset_idx, x.device)
-        lr = schedule(state.step)
+        with span("train.step"):
+            subset_idx = sample_subset_index(state.rng, 1, 3)
+            keep = subset_mask(subset_idx, x.device)
+            lr = schedule(state.step)
 
-        disc.requires_grad_(False)
-        try:
-            loss, aux = loss_g(x, mask, keep, state.latent_rng, False, sdm)
-            update_g(state.opt_g, loss, lr)
-        finally:
-            disc.requires_grad_(True)
-        del loss
+            disc.requires_grad_(False)
+            try:
+                with span("train.g_forward"):
+                    loss, aux = loss_g(x, mask, keep, state.latent_rng, False, sdm)
+                update_g(state.opt_g, loss, lr)
+            finally:
+                disc.requires_grad_(True)
+            del loss
 
-        loss_d = loss_d_fn(aux)
-        _step(state.opt_d, params_d, average_gradients(_grads(loss_d, params_d)), lr)
+            with span("train.d_forward"):
+                loss_d = loss_d_fn(aux)
+            with span("train.d_backward"):
+                grads_d = average_gradients(_grads(loss_d, params_d))
+            with span("train.d_adam"):
+                _step(state.opt_d, params_d, grads_d, lr)
+            del grads_d
 
-        metrics = dict(aux["losses"])
-        metrics["loss_d"] = loss_d.detach()
-        metrics["train_dice"] = dice_coefficient(aux["f_seg"], mask)
-        metrics["wt_dice"] = dice_region(aux["f_seg"], mask, "WT")
-        metrics["tc_dice"] = dice_region(aux["f_seg"], mask, "TC")
-        metrics["ec_dice"] = dice_region(aux["f_seg"], mask, "EC")
-        metrics = average_metrics(metrics)
-        metrics["subset_idx"] = subset_idx
-        state.step += 1
+            metrics = dict(aux["losses"])
+            metrics["loss_d"] = loss_d.detach()
+            metrics["train_dice"] = dice_coefficient(aux["f_seg"], mask)
+            metrics["wt_dice"] = dice_region(aux["f_seg"], mask, "WT")
+            metrics["tc_dice"] = dice_region(aux["f_seg"], mask, "TC")
+            metrics["ec_dice"] = dice_region(aux["f_seg"], mask, "EC")
+            metrics = average_metrics(metrics)
+            metrics["subset_idx"] = subset_idx
+            state.step += 1
         return state, metrics
 
     return train_step

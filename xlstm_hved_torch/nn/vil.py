@@ -40,6 +40,7 @@ from xlstm_hved_torch.nn.blocks import DoubleConv, _cast, at_least_fp32
 from xlstm_hved_torch.ops.mlstm import mlstm_chunkwise
 from xlstm_hved_torch.ops.mlstm_cuda import mlstm_forward
 from xlstm_hved_torch.parallel.mesh import sample_rows
+from xlstm_hved_torch.utils.logging import span
 
 
 def _normal_(t: torch.Tensor, std: float) -> torch.Tensor:
@@ -77,7 +78,8 @@ class LinearHeadwiseExpand(nn.Module):
 
 
 class CausalConv1d(nn.Module):
-    """Depthwise causal conv over the token axis of (B, S, F)."""
+    """Depthwise causal conv over the token axis of (B, S, F), a
+    `span("vil.conv1d")`."""
 
     def __init__(self, dim: int, kernel_size: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -86,10 +88,11 @@ class CausalConv1d(nn.Module):
         self.conv = nn.Conv1d(dim, dim, kernel_size, groups=dim)
 
     def forward(self, x):
-        xc = F.pad(_cast(x, self.dtype).transpose(1, 2), (self.kernel_size - 1, 0))
-        conv = self.conv
-        return conv._conv_forward(xc, _cast(conv.weight, self.dtype),
-                                  _cast(conv.bias, self.dtype)).transpose(1, 2)
+        with span("vil.conv1d"):
+            xc = F.pad(_cast(x, self.dtype).transpose(1, 2), (self.kernel_size - 1, 0))
+            conv = self.conv
+            return conv._conv_forward(xc, _cast(conv.weight, self.dtype),
+                                      _cast(conv.bias, self.dtype)).transpose(1, 2)
 
 
 class ResidualLayerNorm(nn.Module):

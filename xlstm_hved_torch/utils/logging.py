@@ -1,6 +1,7 @@
 """Logging and observability (counterpart of `xlstm_hved_tpu/utils/logging.py`):
-CSV metric logs, running averages, a stream logger, a wall-clock span, the
-time a loop waits on its iterator, and a `torch.profiler` trace scope."""
+CSV metric logs, running averages, a stream logger, `span` (a named range
+of the program on the profiler's clock, and its wall seconds in a table),
+the time a loop waits on its iterator, and a `torch.profiler` trace scope."""
 from __future__ import annotations
 
 import contextlib
@@ -10,6 +11,8 @@ import os
 import sys
 import time
 from typing import Dict, Iterable, Iterator, Optional, TypeVar
+
+import torch
 
 T = TypeVar("T")
 
@@ -58,29 +61,65 @@ class CSVLogger:
             csv.writer(f).writerow([row.get(k, "") for k in self.fieldnames])
 
 
-@contextlib.contextmanager
-def step_timer(label: str, logger: Optional[logging.Logger] = None):
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    msg = f"{label}: {dt:.3f}s"
-    (logger.info if logger else print)(msg)
+class _Span:
+    __slots__ = ("name", "table", "range", "t0")
+
+    def __init__(self, name: str, table: Optional[Dict[str, float]], traced: bool):
+        self.name, self.table = name, table
+        self.range = torch.profiler.record_function(name) if traced else None
+
+    def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
+        if self.table is not None:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.table is not None:
+            self.table[self.name] = (self.table.get(self.name, 0.0)
+                                     + time.perf_counter() - self.t0)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, table: Optional[Dict[str, float]] = None):
+    """A named range of the program: `with span("train.g_backward"): ...`.
+
+    While a torch.profiler is recording it is a `record_function` range, on
+    the same clock as the device operations the profiler traces (the ranges
+    say which part of the program launched each kernel). With `table` it
+    also adds its wall seconds to table[name]. With neither it costs one
+    flag check: no range object, no dispatcher call. It never synchronises
+    the device.
+
+    The names the program's hot path opens (`train.*` in engine/train.py,
+    `sweep.prefix` / `sweep.suffix` in engine/evaluate.py, `vil.conv1d` in
+    nn/vil.py) are read by the benchmark's per-layer metrics
+    (perfbench/spans.py): they are part of its contract, and a metric whose
+    span is renamed or removed reads nothing until the benchmark follows."""
+    traced = torch.autograd._profiler_enabled()
+    if table is None and not traced:
+        return _OFF
+    return _Span(name, table, traced)
 
 
 def timed_iter(iterable: Iterable[T], spans: Dict[str, float],
                key: str = "wait") -> Iterator[T]:
-    """Yield from `iterable`, adding the seconds spent waiting for each item
-    to spans[key]."""
+    """Yield from `iterable`, each wait for an item a `span(key, spans)`:
+    its seconds added to spans[key], and a range in a profiler trace."""
     it = iter(iterable)
     try:
         while True:
-            t0 = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
-                return
-            finally:
-                spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+            with span(key, spans):
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
             yield item
     finally:
         close = getattr(it, "close", None)
@@ -96,7 +135,6 @@ def profiler_trace(log_dir: Optional[str]):
     if log_dir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
