@@ -8,8 +8,8 @@ no phase catches its own failure and nothing falls back to the CPU or to a
 plain twin):
  1. device   the card's name and power limit from nvidia-smi; TF32 off
  2. build    every CUDA source of the port (mlstm_fwd.cu with its states
-             variant, mlstm_bwd.cu, both including mlstm_wide.cuh), one
-             nvcc each, all started together;
+             variant, mlstm_bwd.cu, both including mlstm_wide.cuh, and
+             gate_conv.cu), one nvcc each, all started together;
              ptxas's registers, shared memory and spills for each CUDA kernel
  3. kernel   each kernel (mlstm_fwd, mlstm_fwd_states, mlstm_bwd; one call of
              each is three CUDA launches, seven for mlstm_bwd on the wide
@@ -39,7 +39,16 @@ plain twin):
              mlstm_fwd_states'; then the
              differentiable wrapper's h and five gradients against the plain
              chunkwise scan and its autograd at S 2000 and 6144 (the twins
-             follow the kernels' phases; the scan is independent of them)
+             follow the kernels' phases; the scan is independent of them);
+             then the RSM gates' 7^3 conv (gate_conv, ops/gate_cuda.py)
+             against the fp64 conv of its operands on 17 cases (the seg
+             decoder stages 0-2 of the 128x192x128 crop, 4 -> 1 and 2 -> 1
+             in bf16; ragged sizes, batch 2, 10 -> 4, 16 -> 3, 3 -> 2; fp32
+             and fp64), bit for bit run to run and across the batch, and at
+             the three level shapes its time beside its bound (fp32 CUDA
+             cores and bf16 tensor cores; bytes), the plain twin (F.conv3d
+             in the gate's dtype, the library path it replaced) and cuDNN's
+             channels-last conv (library_ms)
  4. forward  the flagship XLSTM_HVED seg+recon forward at full width (f_maps 4,
              4 levels, fp32, seeded random weights) at 128^3 and 128x192x128:
              finite, seg in [0, 1], one mLSTM kernel launch per forward, and
@@ -57,8 +66,8 @@ plain twin):
              against the same call through the plain mLSTM; then 1 warm-up
              and 3 timed train steps: finite losses, G, D and the BatchNorm
              running statistics move, and exactly 2 mlstm_fwd, 2
-             mlstm_fwd_states and 2 mlstm_bwd launches per step; the same
-             step's time at 128^3
+             mlstm_fwd_states, 2 mlstm_bwd and 12 gate_conv launches per
+             step; the same step's time at 128^3
  7. cli      the training entry points as a user runs them, in-process
              through their main(argv) on --device cuda at the CLI defaults
              (crop 128x192x128, f_maps 4, Discriminator(64, 4), G and D in
@@ -247,6 +256,12 @@ Bounds:
 - the wrapper's gradients against autograd through the plain scan: max|d| /
   max|ref| < 1e-3, the JAX package's own on-chip criterion for its fused
   backward.
+- gate_conv against the fp64 conv of the same operands, at every output:
+  |d| <= u_out |ref| + (2 u_sum + 2^-53) n sum|w x|, with n = C 343 + 1
+  terms, u_out the unit roundoff of the output type (bf16 2^-8, fp32
+  2^-24, fp64 2^-53) and u_sum that of the sums (fp32 for bf16 and fp32
+  operands, fp64 for fp64): the output's one rounding and the worst error
+  of a sum of n terms in the kernel's order and in the reference's.
 - the whole forward with the kernel against the forward through the plain
   mLSTM: seg max|d| <= 1e-3 and recon max|d| <= 3.5e-3 (the graph's stacked
   InstanceNorms amplify the kernel's fp32 rounding, the same budget the CPU
@@ -396,8 +411,13 @@ def ptxas_report(log: str):
             # narrow kernels carry their DH, the wide ones their mode
             m = re.search(r"((?:mlstm|wide)_[a-z_]+?_kernel)(?:ILi(\d+)E|ILN\w*?E(\d+)E)?",
                           line)
+            gate = re.search(r"gate_conv_kernelI(13__nv_bfloat16|f|d)[fd]Li(\d)E", line)
             arg = m and (m.group(2) or m.group(3))
-            name = (f"{m.group(1)}<{arg}>" if arg else m.group(1)) if m else line.split("'")[1]
+            if gate:   # the gate kernel carries its operands' type and output channels
+                kind = {"f": "float", "d": "double"}.get(gate.group(1), "bf16")
+                name = f"gate_conv_kernel<{kind}, {gate.group(2)}>"
+            else:
+                name = (f"{m.group(1)}<{arg}>" if arg else m.group(1)) if m else line.split("'")[1]
         elif "stack frame" in line:
             frame = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -720,6 +740,133 @@ def check_wrapper_gradients(dev):
               f"dfgate {errs[4]:.3e}", flush=True)
 
 
+# The RSM gates' thin 7^3 conv (ops/gate_cuda.py, csrc/gate_conv.cu): the
+# seg decoder stages 0-2 at the 128x192x128 crop, where the two AttenModule2
+# gates of each stage take 4 and 2 channels to 1, in the configurations'
+# bf16; then ragged sizes, batch 2, AttenModule's 10 -> 4 and the widest
+# shapes the kernel takes, in bf16, fp32 and fp64.
+GATE_LEVELS = ((128, 192, 128), (64, 96, 64), (32, 48, 32))
+GATE_TIMED = tuple((f"{gate}_L{i}", 1, cin, 1, shape, "bfloat16")
+                   for i, shape in enumerate(GATE_LEVELS)
+                   for gate, cin in (("enc", 4), ("seg", 2)))
+GATE_CASES = GATE_TIMED + (
+    ("ragged_b2", 2, 4, 1, (9, 13, 11), "bfloat16"),
+    ("ragged_w45", 1, 2, 1, (37, 21, 45), "bfloat16"),
+    ("atten_10to4", 1, 10, 4, (20, 24, 40), "bfloat16"),
+    ("c16_o3", 1, 16, 3, (8, 8, 64), "bfloat16"),
+    ("c3_o2", 1, 3, 2, (17, 9, 33), "bfloat16"),
+    ("enc_L1_fp32", 1, 4, 1, GATE_LEVELS[1], "float32"),
+    ("atten_10to4_fp32", 1, 10, 4, (20, 24, 40), "float32"),
+    ("ragged_b2_fp32", 2, 2, 1, (9, 13, 11), "float32"),
+    ("enc_L2_fp64", 1, 4, 1, GATE_LEVELS[2], "float64"),
+    ("atten_10to4_fp64", 1, 10, 4, (20, 24, 40), "float64"),
+    ("ragged_b2_fp64", 2, 4, 1, (9, 13, 11), "float64"))
+# unit roundoff of the output type and of the sums (bf16 operands sum in fp32)
+GATE_UNIT = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -24, "float64": 2.0 ** -53}
+GATE_SUM_UNIT = {"bfloat16": 2.0 ** -24, "float32": 2.0 ** -24, "float64": 2.0 ** -53}
+BF16_FLOP_PER_S = 989e12
+GATE_PER_TRAIN_STEP = 12   # the flagship's two G forwards, 3 AttenModule2 joins of 2 gates
+
+
+def gate_cost(n: int, cin: int, cout: int, shape) -> tuple:
+    """(bytes, flops) of one gate conv at bf16: the input read once, the
+    output written once (the weights are 343 values a channel pair); an
+    FMA of each of the 343 taps of each channel pair at every voxel."""
+    voxels = n * math.prod(shape)
+    return 2 * (cin + cout) * voxels, 2 * 343 * cin * cout * voxels
+
+
+def gate_bound(x, weight, bias, dtype: str):
+    """The fp64 conv of the same operands and the largest error the kernel
+    may have at each output: the rounding of its output type, plus the sum
+    of n = C 343 + 1 terms in its accumulation type (at most n u sum|terms|
+    each way) and the fp64 reference's own."""
+    import torch
+    import torch.nn.functional as F
+
+    x64, w64, b64 = x.double(), weight.double(), bias.double()
+    ref = F.conv3d(x64, w64, b64, padding=3)
+    mag = F.conv3d(x64.abs(), w64.abs(), b64.abs(), padding=3)
+    n = weight.shape[1] * 343 + 1
+    return ref, GATE_UNIT[dtype] * ref.abs() + (2 * GATE_SUM_UNIT[dtype] + 2.0 ** -53) * n * mag
+
+
+def check_gate_kernel(dev):
+    """Phase 3, the gate conv against its fp64 reference on every case
+    (within `gate_bound`), bit for bit from run to run and across the
+    batch; at the cells' three level shapes its time beside its bound, the
+    plain twin (F.conv3d in the gate's dtype, the library path it
+    replaces) and cuDNN's channels-last conv (library_ms). Returns the
+    kernels-line row."""
+    import torch
+    import torch.nn.functional as F
+    from xlstm_hved_torch.ops import gate_cuda as gc
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    row = {"name": "gate_conv", "route": "cuda", "source": f"{SOURCE_ROOT}/gate_conv.cu",
+           "replaces": None, "cases": len(GATE_CASES)}
+    worst = 0.0
+    for label, n, cin, cout, shape, dtype in GATE_CASES:
+        dt = getattr(torch, dtype)
+        x = torch.rand(n, cin, *shape, generator=gen, device=dev).to(dt)
+        w = (0.05 * torch.randn(cout, cin, 7, 7, 7, generator=gen, device=dev)).to(dt)
+        b = (0.1 * torch.randn(cout, generator=gen, device=dev)).to(dt)
+        before = gc.run_gate_kernel.launches
+        with torch.inference_mode():
+            out = gc.run_gate_kernel(x, w, b)
+            again = gc.run_gate_kernel(x, w, b)
+            ref, bound = gate_bound(x, w, b, dtype)
+            torch.cuda.synchronize()
+        if gc.run_gate_kernel.launches - before != 2:
+            fail(f"gate_conv {label}: {gc.run_gate_kernel.launches - before} launches "
+                 "counted for 2 calls")
+        if out.shape != (n, cout, *shape) or out.dtype != dt or not finite(out):
+            fail(f"gate_conv {label}: {tuple(out.shape)} {out.dtype}, finite {finite(out)}")
+        if not torch.equal(out, again):
+            fail(f"gate_conv {label}: two runs differ (max|d| {absmax(out - again):.3e})")
+        if n > 1:
+            with torch.inference_mode():
+                alone = gc.run_gate_kernel(x[1:], w, b)
+            if not torch.equal(alone, out[1:]):
+                fail(f"gate_conv {label}: batch item 1 alone differs from the batch's")
+        d = (out.double() - ref).abs()
+        ratio = float((d / bound).max())
+        worst = max(worst, ratio)
+        scaled = float(d.max()) / max(absmax(ref), 1e-30)
+        if ratio > 1.0:
+            fail(f"gate_conv {label}: |d| reaches {ratio:.3f} of its bound (max|d| "
+                 f"{float(d.max()):.3e}, scaled {scaled:.3e})")
+        line = (f"  gate_conv {label} ({n}, {cin} -> {cout}, {'x'.join(map(str, shape))}, "
+                f"{dtype}): max|d| {float(d.max()):.3e} scaled {scaled:.3e}, "
+                f"{ratio:.3f} of the bound; bit for bit run to run")
+        if (label, n, cin, cout, shape, dtype) in GATE_TIMED:
+            with torch.inference_mode():
+                call = lambda: gc.run_gate_kernel(x, w, b)   # noqa: E731
+                twin = lambda: gc.gate_conv_reference(x, w, b)   # noqa: E731
+                xl = x.contiguous(memory_format=torch.channels_last_3d)
+                wl = w.contiguous(memory_format=torch.channels_last_3d)
+                library = lambda: F.conv3d(xl, wl, b, padding=3)   # noqa: E731
+                timing = {"ms": cuda_ms(call), "device_ms": device_ms(call),
+                          "plain_ms": device_ms(twin, calls=5, repeats=3),
+                          "library_ms": device_ms(library, calls=5, repeats=3)}
+            nbytes, flops = gate_cost(n, cin, cout, shape)
+            timing.update(bound_fp32_ms=1e3 * flops / FP32_FLOP_PER_S,
+                          bound_bf16_ms=1e3 * flops / BF16_FLOP_PER_S,
+                          bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S, flops=flops,
+                          bytes=nbytes)
+            timing["fp32_peak_share"] = timing["bound_fp32_ms"] / timing["device_ms"]
+            row[label] = timing
+            line += (f" | kernel {timing['ms']:.4f} ms one call (device "
+                     f"{timing['device_ms']:.4f} ms, {100 * timing['fp32_peak_share']:.1f} % "
+                     f"of the fp32 peak) | bound {timing['bound_fp32_ms']:.4f} ms at fp32, "
+                     f"{timing['bound_bf16_ms']:.5f} ms at bf16, bytes "
+                     f"{timing['bytes_ms']:.5f} ms | twin {timing['plain_ms']:.4f} ms | "
+                     f"library (channels-last) {timing['library_ms']:.4f} ms")
+        print(line, flush=True)
+    row["max_err_of_bound"] = worst
+    return row
+
+
 def check_forward(dev, gen, name: str):
     """Phase 4, one preset's seg+recon forward at both crops through the
     kernel, against the same forward through the plain mLSTM. Returns the
@@ -792,8 +939,8 @@ def check_train(dev, gen):
     from xlstm_hved_torch.utils.subsets import subset_mask
 
     counters = {"mlstm_fwd": mc.run_kernel, "mlstm_fwd_states": mc.run_states_kernel,
-                "mlstm_bwd": mc.run_bwd_kernel}
-    per_step = dict.fromkeys(counters, 2)
+                "mlstm_bwd": mc.run_bwd_kernel, **gate_counters()}
+    per_step = {**dict.fromkeys(KERNELS, 2), "gate_conv": GATE_PER_TRAIN_STEP}
 
     def reset():
         for fn in counters.values():
@@ -1656,6 +1803,12 @@ def mlstm_counters():
 
     return {"mlstm_fwd": mc.run_kernel, "mlstm_fwd_states": mc.run_states_kernel,
             "mlstm_bwd": mc.run_bwd_kernel}
+
+
+def gate_counters():
+    from xlstm_hved_torch.ops import gate_cuda as gc
+
+    return {"gate_conv": gc.run_gate_kernel}
 
 
 def zoo_forwards(dev, gen, lines):
@@ -3206,9 +3359,9 @@ def main():
     # ---- 2. build
     t0 = time.perf_counter()
     from xlstm_hved_torch.utils import cuda_build
-    from xlstm_hved_torch.ops import mlstm_cuda
+    from xlstm_hved_torch.ops import gate_cuda, mlstm_cuda
 
-    report = cuda_build.build(mlstm_cuda.SOURCES)
+    report = cuda_build.build(mlstm_cuda.SOURCES + gate_cuda.SOURCES)
     for name, rep in report.items():
         for line in ptxas_report(rep["log"]):
             spills = re.findall(r"(\d+) bytes spill", line)
@@ -3220,11 +3373,14 @@ def main():
     t0 = time.perf_counter()
     rows, worst, regime_worst = check_kernels(dev)
     check_wrapper_gradients(dev)
+    rows["gate_conv"] = check_gate_kernel(dev)
     done("kernel", t0, "mlstm_fwd, mlstm_fwd_states and mlstm_bwd agree with their twins "
                        f"on {len(KERNEL_CASES)} cases; worst max|d| " +
                        " ".join(f"{n} {e:.3e}" for n, e in worst.items()) +
                        f"; the {len(GATE_REGIME_CASES)} gate-regime cases' worst " +
-                       " ".join(f"{n} {e:.3e}" for n, e in regime_worst.items()))
+                       " ".join(f"{n} {e:.3e}" for n, e in regime_worst.items()) +
+                       f"; gate_conv within its bound on {len(GATE_CASES)} cases (worst "
+                       f"{rows['gate_conv']['max_err_of_bound']:.3f} of it)")
 
     # ---- 4. forward: the flagship and the ViL-decoder preset
     t0 = time.perf_counter()
@@ -3280,7 +3436,7 @@ def main():
     del model, sweep, segs, recs, first, x
     torch.cuda.empty_cache()
     train = check_train(dev, gen)
-    for name in ("mlstm_fwd", "mlstm_fwd_states", "mlstm_bwd"):
+    for name in ("mlstm_fwd", "mlstm_fwd_states", "mlstm_bwd", "gate_conv"):
         rows[name]["launches_per_train_step"] = train["per_step"][name]
     for name in ("mlstm_fwd_states", "mlstm_bwd"):
         rows[name]["launches"] = train["launches"][name]
@@ -3361,8 +3517,8 @@ def main():
         rows[name]["launches_chain"] = chain["launches"][name]
     done("chain", t0, chain["summary"])
 
-    for name, row in rows.items():
-        row["max_abs_err"] = worst[name]
+    for name in KERNELS:
+        rows[name]["max_abs_err"] = worst[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

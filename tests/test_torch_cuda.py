@@ -8,7 +8,11 @@ through the plain scan, the xLSTM models' kernel path against their plain
 path, the model's kernel path (the forward, the train step, the pretrain
 step) against its plain path, the hoisted 15-subset sweep against the
 plain one (U_HVEDNet3D's too), the native NIfTI decoder built on that
-machine, and the patch-size probe. These need a CUDA
+machine, the patch-size probe, and the RSM gates' 7^3 conv kernel against
+its twin (the cells' level shapes, ragged sizes, 2 to 16 input and 1 to 4
+output channels, bf16 / fp32 / fp64), run to run and across the batch bit
+for bit, its Function's gradients bit for bit autograd's through F.conv3d,
+and its launches over a hoisted sweep and a train step. These need a CUDA
 device and nvcc; without a card they skip. Run them on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -593,3 +597,111 @@ def test_find_maximum_patch_size_returns_a_listed_shape(dev):
         return model(x, recon=True, deterministic=True)
 
     assert find_maximum_patch_size(forward, device=dev) in DEFAULT_PATCH_SHAPES
+
+
+# ---------------------------------------------------------------- the RSM gate conv
+
+# (batch, in, out, D, H, W): the seg decoder stages 0-2 at the 128x192x128
+# crop (the enc gate 4 -> 1, the seg gate 2 -> 1), ragged sizes (a width
+# that is no multiple of 8 stores value by value), batch 2, AttenModule's
+# 10 -> 4 and the widest the kernel takes
+GATE_SHAPES = [(1, 4, 1, 128, 192, 128), (1, 2, 1, 128, 192, 128), (1, 4, 1, 64, 96, 64),
+               (1, 2, 1, 64, 96, 64), (1, 4, 1, 32, 48, 32), (1, 2, 1, 32, 48, 32),
+               (2, 4, 1, 9, 13, 11), (1, 2, 1, 37, 21, 45), (1, 10, 4, 20, 24, 40),
+               (1, 16, 3, 8, 8, 64)]
+# unit roundoff of the output and of the sums (bf16 operands sum in fp32)
+GATE_UNITS = {torch.bfloat16: (2.0 ** -8, 2.0 ** -24), torch.float32: (2.0 ** -24, 2.0 ** -24),
+              torch.float64: (2.0 ** -53, 2.0 ** -53)}
+
+
+def _gate_operands(dev, n, cin, cout, shape, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(n, cin, *shape, generator=g, device=dev).to(dtype)
+    w = (0.05 * torch.randn(cout, cin, 7, 7, 7, generator=g, device=dev)).to(dtype)
+    b = (0.1 * torch.randn(cout, generator=g, device=dev)).to(dtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("n,cin,cout,D,H,W", GATE_SHAPES)
+def test_gate_kernel_matches_twin(dev, n, cin, cout, D, H, W, dtype):
+    """The kernel against the twin's conv in fp64 on the same operands, at
+    each output within the rounding of the output type plus the error of a
+    sum of n = C 343 + 1 terms in the accumulation type, n u sum|terms|
+    (fp32 sums for bf16 operands; the fp64 reference's own error beside)."""
+    import torch.nn.functional as F
+    from xlstm_hved_torch.ops import gate_cuda
+
+    x, w, b = _gate_operands(dev, n, cin, cout, (D, H, W), dtype)
+    with torch.inference_mode():
+        out = gate_cuda.run_gate_kernel(x, w, b)
+        ref = gate_cuda.gate_conv_reference(x.double(), w.double(), b.double())
+        mag = F.conv3d(x.double().abs(), w.double().abs(), b.double().abs(), padding=3)
+    assert out.dtype == dtype and out.shape == (n, cout, D, H, W)
+    unit, sum_unit = GATE_UNITS[dtype]
+    bound = unit * ref.abs() + (2 * sum_unit + 2.0 ** -53) * (cin * 343 + 1) * mag
+    assert bool(((out.double() - ref).abs() <= bound).all()), float(
+        ((out.double() - ref).abs() / bound).max())
+
+
+def test_gate_kernel_is_deterministic_and_batch_independent(dev):
+    from xlstm_hved_torch.ops import gate_cuda
+
+    x, w, b = _gate_operands(dev, 2, 4, 1, (128, 192, 128), torch.bfloat16, seed=1)
+    with torch.inference_mode():
+        first = gate_cuda.run_gate_kernel(x, w, b)
+        assert torch.equal(first, gate_cuda.run_gate_kernel(x, w, b))
+        assert torch.equal(first[1:], gate_cuda.run_gate_kernel(x[1:], w, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_gate_function_gradients_equal_autograd_through_conv3d(dev, dtype):
+    """GateConvFunction's backward is the library call's: for one upstream
+    gradient its input, weight and bias gradients are bit for bit those of
+    autograd through F.conv3d (cuDNN deterministic for both)."""
+    import torch.nn.functional as F
+    from xlstm_hved_torch.ops import gate_cuda
+
+    x, w, b = _gate_operands(dev, 1, 4, 1, (64, 96, 64), dtype, seed=2)
+    g = torch.randn(1, 1, 64, 96, 64, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev).to(dtype)
+    grads = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fn in (gate_cuda.gate_conv, lambda *t: F.conv3d(*t, padding=3)):
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for got, want in zip(*grads):
+        assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_a_hoisted_sweep_and_a_step_launch_the_gate_kernel(dev):
+    """90 launches over one hoisted 15-subset sweep of U_HVEDConvXLSTMNet3D
+    (two gates in each of the seg decoder's three AttenModule2 joins), 12
+    over a flagship train step (its two G forwards)."""
+    from xlstm_hved_torch.ops import gate_cuda
+
+    model = find_model_using_name("U_HVEDConvXLSTMNet3D", device=dev, seed=5,
+                                  compute_dtype="bfloat16").eval()
+    x = torch.rand(1, 4, 32, 48, 32, generator=torch.Generator(device=dev).manual_seed(6),
+                   device=dev)
+    sweep = make_hoisted_subset_sweep(model, (32, 48, 32), recon_channels=4)
+    before = gate_cuda.run_gate_kernel.launches
+    sweep(model, x)
+    assert gate_cuda.run_gate_kernel.launches - before == 90
+
+    cfg = TrainConfig(crop_size=(32, 32, 32))
+    model = find_model_using_name("XLSTM_HVED", device=dev, seed=4, compute_dtype="bfloat16")
+    disc = Discriminator(f_maps=8, kernel=3)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand(1, 4, 32, 32, 32, generator=gen, device=dev)
+    mask = (torch.rand(1, 3, 32, 32, 32, generator=gen, device=dev) > 0.7).float()
+    state = create_train_state(model, disc, cfg, 0, x, init_scheme="reference")
+    step = make_train_step(model, disc, cfg)
+    before = gate_cuda.run_gate_kernel.launches
+    state, metrics = step(state, x, mask)
+    torch.cuda.synchronize()
+    assert gate_cuda.run_gate_kernel.launches - before == 12
+    assert all(torch.isfinite(torch.as_tensor(float(v))) for v in metrics.values())

@@ -11,6 +11,7 @@ import torch
 
 from xlstm_hved_torch.config import MODEL_ALIASES, MODEL_ZOO, get_config
 from xlstm_hved_torch.models import find_model_using_name, resolve_device
+from xlstm_hved_torch.ops import gate_cuda
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "xlstm_hved_tpu")
@@ -81,3 +82,8 @@ def test_cuda_request_without_a_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+    # the gate kernel's wrapper takes CUDA tensors only; the CPU twin is
+    # gate_conv's, chosen by the device
+    x, w, b = torch.rand(1, 4, 8, 8, 8), torch.rand(1, 4, 7, 7, 7), torch.rand(1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gate_cuda.run_gate_kernel(x, w, b)

@@ -1,7 +1,8 @@
 """PyTorch port: the program's spans (`utils.logging.span`). Under a
 recording profiler a train step records each of its phases once, nested
-under `train.step`, with the ViL's conv inside G's forward; a hoisted sweep
-records its prefix once and a suffix per subset. With no profiler a span
+under `train.step`, with the ViL's conv and the RSM gates inside G's
+forward; a hoisted sweep records its prefix once and a suffix per subset,
+with six gates in each suffix. With no profiler a span
 builds no profiler range, and a step is bitwise the same with and without
 one. The CLIs' timers are spans: with --profile_dir their names are in the
 trace too."""
@@ -18,6 +19,7 @@ from xlstm_hved_torch.data.synthetic import write_synthetic_dataset
 from xlstm_hved_torch.engine.evaluate import make_hoisted_subset_sweep
 from xlstm_hved_torch.engine.train import create_train_state, make_train_step
 from xlstm_hved_torch.models import Discriminator, find_model_using_name
+from xlstm_hved_torch.nn.blocks import AttenModule2
 from xlstm_hved_torch.nn.vil import CausalConv1d
 from xlstm_hved_torch.utils.logging import span, timed_iter
 
@@ -96,6 +98,45 @@ def test_a_hoisted_sweep_records_one_prefix_and_fifteen_suffixes():
     convs = [r for r in ranges if r[0] == "vil.conv1d"]
     assert len(convs) == 15
     assert all(sum(_inside(c, s) for s in suffixes) == 1 for c in convs)
+
+
+def test_the_rsm_gates_record_six_spans_in_each_suffix():
+    """The seg decoder's three AttenModule2 joins, two gates each, run in
+    every subset's suffix and never in the hoisted prefix."""
+    model = find_model_using_name("U_HVEDConvXLSTMNet3D", device="cpu", seed=2,
+                                  compute_dtype="float32").eval()
+    x = torch.rand(1, 4, *CROP, generator=torch.Generator().manual_seed(3))
+    sweep = make_hoisted_subset_sweep(model, CROP, CROP, recon_channels=4)
+    prof, _ = _profiled(lambda: sweep(model, x))
+    ranges = _ranges(prof, ("sweep.prefix", "sweep.suffix", "rsm.gate"))
+    (prefix,) = [r for r in ranges if r[0] == "sweep.prefix"]
+    suffixes = [r for r in ranges if r[0] == "sweep.suffix"]
+    gates = [r for r in ranges if r[0] == "rsm.gate"]
+    assert len(gates) == 6 * 15 and not any(_inside(g, prefix) for g in gates)
+    for s in suffixes:
+        assert sum(_inside(g, s) for g in gates) == 6
+
+
+def test_an_atten_module2_call_records_two_gates():
+    module = AttenModule2()
+    seg, enc = torch.rand(1, 4, 8, 8, 8), torch.rand(1, 4, 8, 8, 8)
+    prof, _ = _profiled(lambda: module(seg, enc))
+    assert len(_ranges(prof, ("rsm.gate",))) == 2
+
+
+def test_a_flagship_g_forward_records_six_gates_and_a_step_twelve():
+    model = find_model_using_name("XLSTM_HVED", device="cpu", seed=0,
+                                  compute_dtype="float32")
+    x = torch.rand(1, 4, *CROP, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        prof, _ = _profiled(lambda: model(x, recon=True, deterministic=True))
+    assert len(_ranges(prof, ("rsm.gate",))) == 6
+    state, step, x, mask = _step_and_inputs()
+    prof, _ = _profiled(lambda: step(state, x, mask))
+    ranges = _ranges(prof, ("train.g_forward", "rsm.gate"))
+    (g_forward,) = [r for r in ranges if r[0] == "train.g_forward"]
+    gates = [r for r in ranges if r[0] == "rsm.gate"]
+    assert len(gates) == 12 and all(_inside(g, g_forward) for g in gates)
 
 
 def test_with_no_profiler_a_span_builds_no_range(monkeypatch):

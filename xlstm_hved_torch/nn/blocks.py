@@ -1,7 +1,9 @@
 """Conv building blocks in NCDHW (counterpart of `xlstm_hved_tpu/nn/blocks.py`).
 
 Every 3D conv is a cuDNN `nn.Conv3d` with torch-style symmetric padding
-k // 2 (odd kernels), stride-2 included. The JAX package's block-diagonal
+k // 2 (odd kernels), stride-2 included, but for the RSM gates' folded
+thin 7^3 conv, which on the card is a hand-written kernel
+(`ops/gate_cuda.py`). The JAX package's block-diagonal
 convs over folded modality streams are grouped convs here: stream m owns
 channels [m*C, (m+1)*C), the group-major order of `nn.Conv3d(groups=M)`.
 Submodule names follow the flax scopes (`conv`, `Conv3DFast_0`,
@@ -32,7 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xlstm_hved_torch.ops.gate_cuda import gate_conv
 from xlstm_hved_torch.parallel.mesh import data_mesh, global_sums
+from xlstm_hved_torch.utils.logging import span
 
 _ORDER_CHARS = set("cilregb")
 # the folded-stream blocks normalise per channel only
@@ -398,19 +402,24 @@ class EncoderStage(nn.Module):
 def _composed_pool_gate(x, grouped: nn.Conv3d, point: nn.Conv3d, expan: int = 4):
     """The grouped 7^3 conv followed by a 1x1 conv with no nonlinearity
     between is one linear map: fold the weights (in the parameters' dtype)
-    and run one thin 7^3 conv in the gate's compute dtype.
+    and run one thin 7^3 conv in the gate's compute dtype, a
+    `span("rsm.gate")`.
 
         k_eff[o, m] = sum_e w7[m*E + e, 0] * w1[o, m*E + e]
         b_eff[o]    = sum_{m,e} b7[m*E + e] * w1[o, m*E + e] + b1[o]
-    """
-    streams = grouped.in_channels
-    k = grouped.kernel_size
-    w7 = grouped.weight.reshape(streams, expan, *k)
-    w1 = point.weight.reshape(point.out_channels, streams, expan)
-    k_eff = torch.einsum("mekij,ome->omkij", w7, w1)
-    b_eff = torch.einsum("me,ome->o", grouped.bias.reshape(streams, expan), w1) + point.bias
-    dt = grouped.compute_dtype
-    return F.conv3d(_cast(x, dt), _cast(k_eff, dt), _cast(b_eff, dt), padding=k[0] // 2)
+
+    The thin conv is the hand-written kernel for CUDA tensors
+    (`ops/gate_cuda.py`) and the F.conv3d expression, its plain twin, for
+    CPU tensors."""
+    with span("rsm.gate"):
+        streams = grouped.in_channels
+        k = grouped.kernel_size
+        w7 = grouped.weight.reshape(streams, expan, *k)
+        w1 = point.weight.reshape(point.out_channels, streams, expan)
+        k_eff = torch.einsum("mekij,ome->omkij", w7, w1)
+        b_eff = torch.einsum("me,ome->o", grouped.bias.reshape(streams, expan), w1) + point.bias
+        dt = grouped.compute_dtype
+        return gate_conv(_cast(x, dt), _cast(k_eff, dt), _cast(b_eff, dt))
 
 
 class AttenModule2(nn.Module):

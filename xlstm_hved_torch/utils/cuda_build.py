@@ -11,8 +11,9 @@ is reused within a checkout:
 - `.cc` with `g++ -O3 -fPIC -shared -std=c++17 ... -lz -lpthread`, for the
   baseline x86-64 instruction set (no -march=native: a library built on one
   host may be carried to another in `_build/`).
-Several sources build at once, one compiler process each. A failed build
-raises with the compiler's output; nothing falls back.
+Several sources build at once, one compiler process each (`load` builds
+every CUDA source when the first is needed). A failed build raises with
+the compiler's output; nothing falls back.
 """
 from __future__ import annotations
 
@@ -122,8 +123,13 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu` or `.cc`, built first if
-    needed."""
+    needed. The first CUDA library a process needs builds every CUDA source
+    that has no library yet, all at once: the others are built while it
+    is."""
     if name not in _loaded:
-        path = build([name])[name]["path"]
+        names = [name]
+        if _source(name).suffix == ".cu":
+            names += sorted(p.stem for p in CSRC_DIR.glob("*.cu") if p.stem != name)
+        path = build(names)[name]["path"]
         _loaded[name] = ctypes.CDLL(path)
     return _loaded[name]
