@@ -1,6 +1,10 @@
-"""Building the program under test and its plain reference from a
-configuration file, with the same weights made from the seed."""
+"""The builder of the HVED nets (a configuration file without a
+"builder"): the program under test and its plain reference from the
+configuration, with the same weights made from the seed, and the shapes
+of its ViLs' mLSTM calls."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -25,6 +29,22 @@ def program_config(model: dict):
             raise ValueError(f"{model['preset']}.{key} is {have!r}, the configuration "
                              f"file states {value!r}")
     return cfg
+
+
+# the ViLs' heads (nn/vil.py: ViLLayer3D's mLSTM at inner width 2 * dim)
+VIL_HEADS = 4
+
+
+def vil_sites(model: dict, traffic: dict):
+    """(batch x heads, tokens, head width, chunk) of the mLSTM call of each
+    ViL the configuration runs, at the traffic's crop and batch: the
+    mid-ViL at the bottleneck, the decoder's ViL one level above it."""
+    levels = model["num_levels"]
+    bh, chunk = traffic.get("batch", 1) * VIL_HEADS, model["vil_chunk_size"]
+    return [(bh, math.prod(c // 2 ** depth for c in traffic["crop"]),
+             2 * model["f_maps"] * 2 ** depth // VIL_HEADS, chunk)
+            for on, depth in ((model.get("mid_vil"), levels - 1),
+                              (model.get("vil_decoder"), levels - 2)) if on]
 
 
 def reference_modules(config: dict, device, disc: bool):

@@ -22,6 +22,7 @@ Traffic parameters: "crop", "pool", "warmup", "draw_from",
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 from typing import Dict, List, Tuple
 
@@ -222,3 +223,49 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float) -> harn
                           trace=tracer if trace else None, flops_per_unit=flops,
                           notes={"drawn": drawn, "subsets": subsets, "readings": got,
                                  "check_s": check_s})
+
+
+def control_sweep(cell, x, wg, device, subsets):
+    """The control in the sweep's place: the fp8 reference, one plain
+    forward on the whole volume x (its prefix), then one on the masked
+    volume per checked subset, its stages recorded as the program's are.
+    (seg, recon) as the sweep returns them (the other subsets zero), and
+    the records."""
+    with strict_fp32(), torch.no_grad():
+        ctl, _ = program.build_reference(cell.config, wg, None, device, "float8")
+        ctl.eval()
+        phase = {"now": "prefix"}
+        hooks = recorder(stage_plan(cell.config), ctl, subsets)
+        hooks.phase_of = lambda kwargs, count: phase["now"]
+        ctl(x, torch.ones(4, dtype=torch.bool))
+        seg = torch.zeros((15, x.shape[0], 3) + tuple(x.shape[2:]), device=device)
+        rec = torch.zeros((15,) + tuple(x.shape), device=device)
+        for s in subsets:
+            phase["now"] = s
+            keep = ref_step.keep_mask(s, device)
+            out = ctl(x * keep.to(x.dtype).reshape(1, -1, 1, 1, 1), keep.cpu())
+            seg[s], rec[s] = out.seg, out.recon
+        hooks.remove()
+        del ctl
+    program.free(device)
+    return seg, rec, hooks.records
+
+
+def calibrate_seed(cell, seed: int, device, emit, control: bool) -> None:
+    """The readings of one seed for the cell's limits (perfbench/calibrate.py):
+    the program's numbers as a run computes them, its first window sweep
+    followed, without the window; with `control` also the control's
+    (`control_sweep`)."""
+    one = dataclasses.replace(cell, traffic=dict(cell.traffic, draw_from=1))
+    w = run(one, seed, 1e-3, False, device, time.perf_counter())
+    emit(seed, "program", w.notes["readings"], [])
+    program.free(device)
+    if not control:
+        return
+    x, wg = make_inputs(cell, seed, device)
+    subsets = checked_subsets(seed, cell.traffic)
+    seg, rec, records = control_sweep(cell, x[0], wg, device, subsets)
+    got, followed = check(cell, x, wg, {"drawn": (0, seg, rec), "last": (0, seg, rec)},
+                          records, device, subsets)
+    emit(seed, "control", got, sorted(followed.items(), key=lambda kv: -kv[1])[:5])
+    program.free(device)

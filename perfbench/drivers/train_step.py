@@ -350,3 +350,59 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float) -> harn
                           checks=compare(got, cell.limits), attempted=len(times), failed=failed,
                           trace=tracer if trace else None, flops_per_unit=flops,
                           notes={"readings": got, "check_s": check_s})
+
+
+def altered(model):
+    """The module with its forward's segmentation inverted (1 - p) where it
+    is produced."""
+    forward = model.forward
+    model.forward = lambda *a, **k: (lambda out: out._replace(seg=1.0 - out.seg))(
+        forward(*a, **k))
+    return model
+
+
+def calibrate_seed(cell, seed: int, device, emit, control: bool) -> None:
+    """The readings of one seed for the cell's limits (perfbench/calibrate.py):
+    the program's numbers as a run computes them, without the window; with
+    `control` also the control's (the reference in fp8 with its ViL in
+    bf16) and the faults': "unchanged" (a step that leaves the state as it
+    was: no run needed, its change reads 1), "altered" (the program with
+    G's segmentation inverted, 1 - p, where it is produced), and
+    "yardstick" (the reference at the configuration's bf16 in the program's
+    place, for the change alone: what the stated precision does to the
+    change's worst leaf)."""
+    n, checked = cell.traffic["first_steps"], cell.traffic["checked_steps"]
+    x, mask, wg, wd = make_inputs(cell, seed, device)
+
+    def run_program(fault=None):
+        state, step = build_step(cell, wg, wd, seed, device)
+        if fault:
+            fault(state.model)
+        side = program_first_steps(cell, state, step, x, mask, wg, wd, n, checked)
+        del state, step
+        program.free(device)
+        return side
+
+    def judge(name, side):
+        got, _, followed = check(cell, x, mask, wg, wd, seed, device, side)
+        top = sorted(followed.items(), key=lambda kv: -kv[1])[:5]
+        emit(seed, name, got, top)
+        program.free(device)
+        return got
+
+    judge("program", run_program())
+    if not control:
+        return
+    judge("control", reference_first_steps(cell, x, mask, wg, wd, seed, device, checked,
+                                           "float8", record=True)[0])
+    emit(seed, "unchanged", {"change_gap": 1.0, "change_gap_median": 1.0}, [])
+    judge("altered", run_program(altered))
+    ref, _ = reference_first_steps(cell, x, mask, wg, wd, seed, device, checked)
+    yard, _ = reference_first_steps(cell, x, mask, wg, wd, seed, device, checked, "bfloat16")
+    still = still_leaves(ref.grad1)
+    worst = max(by_model(harness.worst_leaf, yard.change, ref.change, still, name=True))
+    emit(seed, "yardstick", {"change_gap": worst[0], "change_leaf": worst[1],
+                             "change_gap_median": by_model(harness.median_leaf,
+                                                           yard.change, ref.change, still)},
+         [])
+    program.free(device)

@@ -6,12 +6,23 @@ Everything that belongs to one configuration, traffic mix, cell or
 per-layer metric is a file of its own, found by the name in
 `BENCHMARK.json`:
 - `perfbench/configs/<config>.json`: the model, its widths and dtypes, the
-  training settings; its "source", "reduced" and "assumed";
+  training settings; its "source", "reduced" and "assumed"; and its
+  "builder", a module of `perfbench/drivers/` (`program`, the HVED nets,
+  when the key is absent) with `program_config(model)`, which checks each
+  field the file states against the program's own construction, and, for
+  a model with ViLs, `vil_sites(model, traffic)`, the shape of each of
+  their mLSTM calls;
 - `perfbench/traffic/<traffic>.json`: the driver that generates the load
-  ("driver", a module of `perfbench/drivers/`) and its parameters;
+  ("driver", a module of `perfbench/drivers/` with `run` and
+  `calibrate_seed`) and its parameters;
 - `perfbench/limits/<cell>.json`: the limit of each number compared;
 - `perfbench/layer_metrics/<family>.py`: the reader of every per-layer
-  metric named `<family>` or `<family>.<anything>`.
+  metric named `<family>` or `<family>.<anything>`; a reader of program
+  spans names its own (`spans.read`).
+
+A model family outside the HVED presets comes in as new files of these
+kinds: a builder, a driver (its load, its window and its comparison with
+a plain reference kept in files of its own), a limits file and readers.
 """
 from __future__ import annotations
 
@@ -80,6 +91,16 @@ def require_card(chips: int) -> None:
 
 def reader(family: str):
     return importlib.import_module(f"perfbench.layer_metrics.{family}")
+
+
+def builder(config: dict):
+    """The configuration's builder module (`perfbench/drivers/<builder>.py`)."""
+    return importlib.import_module(f"perfbench.drivers.{config.get('builder', 'program')}")
+
+
+def driver(traffic: dict):
+    """The traffic mix's driver module (`perfbench/drivers/<driver>.py`)."""
+    return importlib.import_module(f"perfbench.drivers.{traffic['driver']}")
 
 
 # ------------------------------------------------------------ the profiler

@@ -1,50 +1,48 @@
 """The mLSTM kernels' share of their roofline, in %: the least time of
 their calls in the traced window (perfbench/roofline.py, at fp32 peaks)
-over the time the device spent in them (the union of their launches'
-intervals).
+over the time the device spent in them (the union of the intervals of
+both paths' launches).
 
-A forward call of the narrow kernels (head width up to 16) is three
-launches (names containing those below) ending in `mlstm_readout_kernel`, a backward call three ending in
-`mlstm_bwd_cols_kernel`; each backward pairs with a forward that saves the
-chunk states. A call's shape comes from the configuration: the token count
-of its ViL site at the traffic's crop, 4 heads of width 2 * dim / 4, the
-traffic's batch, chunk `vil_chunk_size`."""
-import math
-
+The program runs a call on one of two paths: the narrow kernels (head
+width up to 16; names beginning `mlstm_`) or the wide ones (head widths
+32 and up; names beginning `wide_`). A forward call of either path makes
+one readout launch (`mlstm_readout_kernel`, `wide_readout_kernel`), a
+backward call one column launch (`mlstm_bwd_cols_kernel`,
+`wide_bwd_cols_kernel`); those count the calls. Each backward pairs with
+a forward that saves the chunk states. The calls' shapes come from the
+configuration's builder (`vil_sites(model, traffic)`: batch x heads,
+tokens, head width and chunk of each ViL's call); a builder without ViLs
+has no `vil_sites`, and the metric reads None."""
+from perfbench import harness
 from perfbench.roofline import bound_ms, mlstm_bwd_cost, mlstm_cost
 
-FORWARD = ("mlstm_chunk_state_kernel", "mlstm_fwd_scan_kernel", "mlstm_readout_kernel")
-BACKWARD = ("mlstm_bwd_rows_kernel", "mlstm_bwd_scan_kernel", "mlstm_bwd_cols_kernel")
-HEADS = 4
+NARROW = ("mlstm_chunk_state_kernel", "mlstm_fwd_scan_kernel", "mlstm_readout_kernel",
+          "mlstm_bwd_rows_kernel", "mlstm_bwd_scan_kernel", "mlstm_bwd_cols_kernel")
+WIDE = ("wide_outer_kernel", "wide_fwd_scan_kernel", "wide_readout_kernel",
+        "wide_bwd_gnum_kernel", "wide_bwd_rows_kernel", "wide_bwd_scan_kernel",
+        "wide_bwd_cols_kernel", "wide_bwd_final_kernel", "wide_bwd_carry_kernel")
+KERNELS = NARROW + WIDE
+FORWARD_CALL = ("mlstm_readout_kernel", "wide_readout_kernel")
+BACKWARD_CALL = ("mlstm_bwd_cols_kernel", "wide_bwd_cols_kernel")
 
 
-def sites(model: dict, crop):
-    """(tokens, head width) of each ViL the configuration runs."""
-    f, levels = model["f_maps"], model["num_levels"]
-    out = []
-    if model.get("mid_vil"):
-        dim = f * 2 ** (levels - 1)
-        out.append((math.prod(c // 2 ** (levels - 1) for c in crop), 2 * dim // HEADS))
-    if model.get("vil_decoder"):
-        dim = f * 2 ** (levels - 2)
-        out.append((math.prod(c // 2 ** (levels - 2) for c in crop), 2 * dim // HEADS))
-    return out
+def calls(names, marks) -> int:
+    return sum(any(m in n for m in marks) for n in names)
 
 
 def read(ctx):
     if ctx.trace is None:
         return None
     names = [k[0] for k in ctx.trace.kernels]
-    n_fwd = sum("mlstm_readout_kernel" in n for n in names)
-    n_bwd = min(sum("mlstm_bwd_cols_kernel" in n for n in names), n_fwd)
-    where = sites(ctx.config["model"], ctx.traffic["crop"])
+    n_fwd = calls(names, FORWARD_CALL)
+    n_bwd = min(calls(names, BACKWARD_CALL), n_fwd)
+    sites = getattr(harness.builder(ctx.config), "vil_sites", None)
+    where = sites(ctx.config["model"], ctx.traffic) if sites else []
     if not n_fwd or not where:
         return None
-    BH = ctx.traffic.get("batch", 1) * HEADS
-    L = ctx.config["model"]["vil_chunk_size"]
-    fwd = sum(bound_ms(*mlstm_cost(BH, S, DH, L))[0] for S, DH in where) / len(where)
-    fwd_states = sum(bound_ms(*mlstm_cost(BH, S, DH, L, True))[0] for S, DH in where) / len(where)
-    bwd = sum(bound_ms(*mlstm_bwd_cost(BH, S, DH, L))[0] for S, DH in where) / len(where)
+    fwd = sum(bound_ms(*mlstm_cost(*site))[0] for site in where) / len(where)
+    fwd_states = sum(bound_ms(*mlstm_cost(*site, True))[0] for site in where) / len(where)
+    bwd = sum(bound_ms(*mlstm_bwd_cost(*site))[0] for site in where) / len(where)
     least_ms = (n_fwd - n_bwd) * fwd + n_bwd * (fwd_states + bwd)
-    spent_s = ctx.trace.busy_s(FORWARD + BACKWARD)
+    spent_s = ctx.trace.busy_s(KERNELS)
     return 100.0 * least_ms * 1e-3 / spent_s if spent_s else None

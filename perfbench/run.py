@@ -73,12 +73,10 @@ def main(argv=None) -> int:
 
     cell = harness.load_cell(args.workload)
     harness.require_card(cell.chips)
-    import importlib
-
     import torch
 
-    driver = importlib.import_module(f"perfbench.drivers.{cell.traffic['driver']}")
-    w = driver.run(cell, args.seed, args.seconds, bool(args.trace), torch.device("cuda"), T0)
+    w = harness.driver(cell.traffic).run(cell, args.seed, args.seconds, bool(args.trace),
+                                         torch.device("cuda"), T0)
     found = harness.forbidden_modules()
     if found:
         print(f"perfbench: the run loaded {found}; no result", file=sys.stderr)
@@ -98,7 +96,8 @@ def main(argv=None) -> int:
                    "count": cell.chips, "memory_peak_bytes": int(w.memory_peak_bytes)},
     }
     if args.trace:
-        mlstm = sorted({k[0][:80] for k in w.trace.kernels if "mlstm" in k[0]})
+        names = harness.reader("mlstm_roofline").KERNELS
+        mlstm = sorted({k[0][:80] for k in w.trace.kernels if any(n in k[0] for n in names)})
         print(f"perfbench: mLSTM kernels in the window: {mlstm}", file=sys.stderr)
         line["device"]["busy_s"] = w.trace.busy_s()
         line["device"]["window_s"] = w.trace.window_s

@@ -17,11 +17,13 @@ the span launched, the idle time it held and the launches it made:
 
 Sums are inclusive: a span counts what its descendants count.
 
-The span names read (`SPANS`) are the program's, and part of the
-benchmark's contract: `train.step`, `train.g_forward`, `train.g_backward`,
-`train.g_adam`, `train.d_forward`, `train.d_backward`, `train.d_adam`
-(engine/train.py), `sweep.prefix`, `sweep.suffix` (engine/evaluate.py) and
-`vil.conv1d` (nn/vil.py). A program that renames or removes one leaves the
+The span names read are the program's, and part of the benchmark's
+contract: `SPANS`, which every table attributes (`train.step`,
+`train.g_forward`, `train.g_backward`, `train.g_adam`, `train.d_forward`,
+`train.d_backward`, `train.d_adam` in engine/train.py, `sweep.prefix`,
+`sweep.suffix` in engine/evaluate.py, `vil.conv1d` in nn/vil.py), and any
+other that a reader names (`read`; `table`'s `extra`), as
+`layer_metrics/gate_ms.py` names `rsm.gate`. A program that renames or removes one leaves the
 metrics that read it at None, out of the line, until a `benchmark` change
 follows it; a program with none of them (one older than its spans) gives
 None everywhere.
@@ -147,17 +149,17 @@ def attribute(annotations: Sequence[Tuple[str, int, int, int]],
     return out
 
 
-def events(trace) -> Tuple[list, list, list]:
+def events(trace, extra: Sequence[str] = ()) -> Tuple[list, list, list]:
     """(annotations, launches, ops) of a harness.Trace's window, from its
-    profiler's events: the program spans (`SPANS`) opened on the host, the
-    runtime's launch calls (host events named cu*), and the device
-    operations as `Trace.kernels` has them (device-side annotations and the
-    window's own range left out)."""
+    profiler's events: the program spans (`SPANS` and `extra`) opened on the
+    host, the runtime's launch calls (host events named cu*), and the
+    device operations as `Trace.kernels` has them (device-side annotations
+    and the window's own range left out)."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
     lo, hi = trace.window
-    wanted = set(SPANS)
+    wanted = set(SPANS) | set(extra)
     annotations, launches, ops = [], [], []
     for e in trace.prof.profiler.kineto_results.events():
         name = e.name()
@@ -175,19 +177,21 @@ def events(trace) -> Tuple[list, list, list]:
     return annotations, launches, ops
 
 
-@functools.lru_cache(maxsize=1)
-def table(trace, units: int) -> Dict[Optional[str], Dict[str, float]]:
-    """`attribute` over a harness.Trace's window (kept for the window's
-    readers, which all read the one table)."""
-    return attribute(*events(trace), trace.window, units)
+@functools.lru_cache(maxsize=4)
+def table(trace, units: int, *extra: str) -> Dict[Optional[str], Dict[str, float]]:
+    """`attribute` over a harness.Trace's window, with the spans `SPANS` and
+    `extra` (kept for the window's readers: those that name the same spans
+    read one table)."""
+    return attribute(*events(trace, extra), trace.window, units)
 
 
 def read(ctx, names: Sequence[str], field: str = "busy_ms") -> Optional[float]:
-    """The sum of `field` per unit over the spans `names`, or None without a
-    trace, a unit, or any of the spans in the window."""
+    """The sum of `field` per unit over the spans `names` (those outside
+    `SPANS` among the spans attributed), or None without a trace, a unit,
+    or any of the spans in the window."""
     if ctx.trace is None or not ctx.units:
         return None
-    found = table(ctx.trace, ctx.units)
+    found = table(ctx.trace, ctx.units, *(n for n in names if n not in SPANS))
     if not any(n in found for n in names):
         return None
     return sum(found[n][field] for n in names if n in found)
