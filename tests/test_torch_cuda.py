@@ -705,3 +705,84 @@ def test_a_hoisted_sweep_and_a_step_launch_the_gate_kernel(dev):
     torch.cuda.synchronize()
     assert gate_cuda.run_gate_kernel.launches - before == 12
     assert all(torch.isfinite(torch.as_tensor(float(v))) for v in metrics.values())
+
+
+@pytest.mark.parametrize("S,DH", [(4096, 128), (512, 160), (320, 32)])
+def test_wide_kernels_at_the_uxlstm_sites(dev, S, DH):
+    """The three ViL mixers of UXlstmEnc 3-D at nnU-Net's BraTS plan, batch
+    2: the forward, and the states-saving forward and backward the gradient
+    runs, against autograd through the plain scan, at the bound of
+    test_wide_gradients_match_autograd_through_scan."""
+    inputs = _inputs(dev, 2, 4, S, DH, seed=6)
+    w = torch.randn(2, 4, S, DH, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    counts = (mlstm_cuda.run_states_kernel.launches, mlstm_cuda.run_bwd_kernel.launches)
+    out = mlstm_cuda.mlstm_forward(*leaves)
+    (w * torch.tanh(out)).sum().backward()
+    assert (mlstm_cuda.run_states_kernel.launches - counts[0],
+            mlstm_cuda.run_bwd_kernel.launches - counts[1]) == (1, 1)
+    ref_leaves = [t.clone().requires_grad_(True) for t in inputs]
+    ref = mlstm_chunkwise(*ref_leaves)
+    (w * torch.tanh(ref)).sum().backward()
+    assert _scaled_err(out.detach(), ref.detach()) <= 1e-3
+    for got, want in zip(leaves, ref_leaves):
+        assert torch.isfinite(got.grad).all()
+        assert _scaled_err(got.grad, want.grad) <= 1e-3
+
+
+UXLSTM_SMALL_PLAN = {"patch_size": [32, 32, 32], "conv_kernel_sizes": [[3, 3, 3]] * 5,
+                     "pool_op_kernel_sizes": [[1, 1, 1]] + [[2, 2, 2]] * 4,
+                     "n_conv_per_stage_encoder": [2] * 5, "n_conv_per_stage_decoder": [2] * 4,
+                     "UNet_base_num_features": 4, "unet_max_num_features": 64}
+
+
+def test_ds_train_step_on_the_card_matches_the_cpu(dev):
+    """Two fp32 steps of `engine/seg_train.py` on UXlstmEnc 3-D at a small
+    plan (a patch-token and a channel-token ViL), on the card (cuDNN, the
+    mLSTM kernels) and on the CPU (the plain scan), from the same weights:
+    both losses within 1e-4 and the parameters' change over the two steps
+    within 0.2 (relative L2), the fp32 bounds of
+    tests/test_torch_uxlstm_train.py (this net's fp32 gradient is
+    ill-conditioned at random weights); each step launches the forward,
+    states and backward kernels once per ViL mixer."""
+    import copy
+    import math
+
+    from xlstm_hved_torch.engine import seg_train as st
+    from xlstm_hved_torch.models import build_uxlstm_from_plans
+
+    torch.manual_seed(0)
+    net = build_uxlstm_from_plans(UXLSTM_SMALL_PLAN, 4, 3, True)
+    w0 = {n: p.detach().clone() for n, p in net.named_parameters()}
+    scales = st.deep_supervision_scales(UXLSTM_SMALL_PLAN["pool_op_kernel_sizes"])
+    g = torch.Generator().manual_seed(1)
+    batches = []
+    for _ in range(2):
+        x = torch.rand(2, 4, 32, 32, 32, generator=g)
+        field = torch.rand(2, 1, 32, 32, 32, generator=g)
+        batches.append((x, torch.cat([field < 0.6, field < 0.3, field < 0.1], dim=1).float()))
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        model = copy.deepcopy(net).to(device)
+        cfg = st.SegTrainConfig()
+        state = st.SegTrainState(model, st.make_sgd(model.parameters(), cfg))
+        step = st.make_ds_train_step(model, cfg)
+        before = (mlstm_cuda.run_kernel.launches, mlstm_cuda.run_states_kernel.launches,
+                  mlstm_cuda.run_bwd_kernel.launches)
+        losses = []
+        for x, regions in batches:
+            state, loss = step(state, x.to(device),
+                               st.deep_supervision_targets(regions.to(device), scales))
+            losses.append(float(loss))
+        launched = (mlstm_cuda.run_kernel.launches - before[0],
+                    mlstm_cuda.run_states_kernel.launches - before[1],
+                    mlstm_cuda.run_bwd_kernel.launches - before[2])
+        assert launched == ((4, 4, 4) if device.type == "cuda" else (0, 0, 0))
+        runs[device.type] = losses, {n: (p.detach().cpu() - w0[n]) for n, p in
+                                     model.named_parameters()}
+    (card, card_change), (cpu, cpu_change) = runs["cuda"], runs["cpu"]
+    for a, b in zip(card, cpu):
+        assert abs(a - b) <= 1e-4 * abs(b), (card, cpu)
+    num = sum(float((card_change[n] - cpu_change[n]).double().square().sum()) for n in w0)
+    den = sum(float(cpu_change[n].double().square().sum()) for n in w0)
+    assert math.sqrt(num / den) <= 0.2

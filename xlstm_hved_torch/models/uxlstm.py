@@ -34,6 +34,7 @@ from torch import nn
 from xlstm_hved_torch.nn.blocks import (Conv2d, Conv3d, at_least_fp32, leaky_relu,
                                         set_compute_dtype)
 from xlstm_hved_torch.nn.vil import ViLBlock
+from xlstm_hved_torch.utils.logging import span
 
 IntOrSeq = Union[int, Sequence]
 
@@ -107,7 +108,8 @@ class ResBlockND(nn.Module):
 class ViLMixerND(nn.Module):
     """One ViLBlock over the voxels of a (B, C, *spatial) map (patch tokens,
     `dim` = C) or over its channels (channel tokens, `dim` = the number of
-    voxels), in at least fp32 with autocast off; returns x's dtype."""
+    voxels), in at least fp32 with autocast off; returns x's dtype. Its
+    forward is a `span("vil.mixer")`."""
 
     def __init__(self, dim: int, channel_token: bool = False, chunk_size: int = 128,
                  mlstm_kernel: Optional[bool] = None):
@@ -116,7 +118,7 @@ class ViLMixerND(nn.Module):
         self.vil = ViLBlock(dim, chunk_size, mlstm_kernel)
 
     def forward(self, x):
-        with torch.autocast(device_type=x.device.type, enabled=False):
+        with span("vil.mixer"), torch.autocast(device_type=x.device.type, enabled=False):
             flat = at_least_fp32(x).flatten(2)                  # (B, C, S)
             if self.channel_token:
                 if flat.shape[-1] != self.dim:
@@ -129,7 +131,7 @@ class ViLMixerND(nn.Module):
                 if x.shape[1] != self.dim:
                     raise ValueError(f"ViLMixerND expects {self.dim} channels, got {x.shape[1]}")
                 y = self.vil(flat.transpose(1, 2)).transpose(1, 2)
-        return y.reshape(x.shape).to(x.dtype)
+            return y.reshape(x.shape).to(x.dtype)
 
 
 def mixer_schedule(n_stages: int, ndim: int) -> List[str]:
