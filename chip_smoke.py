@@ -8,8 +8,9 @@ no phase catches its own failure and nothing falls back to the CPU or to a
 plain twin):
  1. device   the card's name and power limit from nvidia-smi; TF32 off
  2. build    every CUDA source of the port (mlstm_fwd.cu with its states
-             variant, mlstm_bwd.cu, both including mlstm_wide.cuh, and
-             gate_conv.cu), one nvcc each, all started together;
+             variant, mlstm_bwd.cu, both including mlstm_wide.cuh,
+             gate_conv.cu and instance_norm.cu), one nvcc each, all started
+             together;
              ptxas's registers, shared memory and spills for each CUDA kernel
  3. kernel   each kernel (mlstm_fwd, mlstm_fwd_states, mlstm_bwd; one call of
              each is three CUDA launches, seven for mlstm_bwd on the wide
@@ -48,7 +49,21 @@ plain twin):
              the three level shapes its time beside its bound (fp32 CUDA
              cores and bf16 tensor cores; bytes), the plain twin (F.conv3d
              in the gate's dtype, the library path it replaced) and cuDNN's
-             channels-last conv (library_ms)
+             channels-last conv (library_ms); then the UxLSTM residual
+             blocks' fused instance norm (instance_norm, ops/
+             instance_norm_cuda.py: statistics, affine, residual add and
+             LeakyReLU, two CUDA launches a call forward and two backward)
+             at UXlstmEnc 3-D's six stage maps of nnU-Net's BraTS plan
+             (batch 2, 128^3 x 32 .. 4^3 x 320), with and without the
+             residual, in bf16 and fp32: y and the gradients of x, the
+             weight, the bias and the residual against autograd through its
+             plain twin (fp32 within 1e-5 relative L2, the upstream gradient
+             0 where LeakyReLU's argument is within rounding of 0; bf16 no
+             farther from the twin in fp64 than the twin's own bf16 path,
+             within 1.25x), bit for bit on rerun, its calls counted from 0;
+             in bf16 its device ms beside
+             two bytes bounds (each operand moved once; the two passes' own
+             re-reads), the plain twin and ATen's instance_norm (library_ms)
  4. forward  the flagship XLSTM_HVED seg+recon forward at full width (f_maps 4,
              4 levels, fp32, seeded random weights) at 128^3 and 128x192x128:
              finite, seg in [0, 1], one mLSTM kernel launch per forward, and
@@ -155,7 +170,9 @@ plain twin):
              equals the keep mask given). Then one UXlstmEnc 3-D backward at
              batch 2 of a seeded weighted sum of its outputs through the
              kernels against the plain mLSTM's, per tensor to phase 6's rule
-             (cuDNN deterministic), 3 / 3 / 3 launches, ms and peak
+             (cuDNN deterministic), 3 / 3 / 3 launches, two fused
+             instance-norm calls forward and two backward per residual
+             block, ms and peak
  12. import  the upstream .pth import, on its own generator, cuDNN
              deterministic: the flagship (f_maps 4, fp32, seeded weights
              and BatchNorm statistics) and its Discriminator(64, 4) written
@@ -412,10 +429,16 @@ def ptxas_report(log: str):
             m = re.search(r"((?:mlstm|wide)_[a-z_]+?_kernel)(?:ILi(\d+)E|ILN\w*?E(\d+)E)?",
                           line)
             gate = re.search(r"gate_conv_kernelI(13__nv_bfloat16|f|d)[fd]Li(\d)E", line)
+            norm = re.search(r"\d(bwd_reduce_kernel|bwd_apply_kernel|stats_kernel|apply_kernel)"
+                             r"I(13__nv_bfloat16|f)((?:Lb[01]E)*)", line)
             arg = m and (m.group(2) or m.group(3))
             if gate:   # the gate kernel carries its operands' type and output channels
                 kind = {"f": "float", "d": "double"}.get(gate.group(1), "bf16")
                 name = f"gate_conv_kernel<{kind}, {gate.group(2)}>"
+            elif norm:   # the norm's kernels: their type, vector loads (and residual)
+                kind = "float" if norm.group(2) == "f" else "bf16"
+                flags = ", ".join(re.findall(r"Lb([01])E", norm.group(3)))
+                name = f"instance_norm::{norm.group(1)}<{kind}, {flags}>"
             else:
                 name = (f"{m.group(1)}<{arg}>" if arg else m.group(1)) if m else line.split("'")[1]
         elif "stack frame" in line:
@@ -865,6 +888,192 @@ def check_gate_kernel(dev):
         print(line, flush=True)
     row["max_err_of_bound"] = worst
     return row
+
+
+# The UxLSTM residual blocks' fused instance norm (ops/instance_norm_cuda.py,
+# csrc/instance_norm.cu) at UXlstmEnc 3-D's six stage maps of nnU-Net's
+# BraTS plan, batch 2: (channels, side of the cube).
+NORM_STAGES = ((32, 128), (64, 64), (128, 32), (256, 16), (320, 8), (320, 4))
+NORM_OUTPUTS = ("y", "dx", "dweight", "dbias", "dresidual")
+
+
+def norm_operands(gen, dev, shape, residual: bool, dtype):
+    """x, weight, bias, the residual (or None) and an upstream gradient with a
+    mean per channel and a part along x, so that dweight and dbias, sums
+    over the batch and the voxels, do not cancel."""
+    import torch
+
+    C = shape[1]
+    per_channel = (1, C) + (1,) * (len(shape) - 2)
+    x = 0.5 + 2 * torch.randn(shape, generator=gen, device=dev)
+    w = 1 + 0.3 * torch.randn(C, generator=gen, device=dev)
+    b = 0.3 * torch.randn(C, generator=gen, device=dev)
+    r = torch.randn(shape, generator=gen, device=dev).to(dtype) if residual else None
+    dy = (0.5 * torch.randn(shape, generator=gen, device=dev) + 0.25 * x
+          + torch.randn(C, generator=gen, device=dev).view(per_channel))
+    return x.to(dtype), w, b, r, dy.to(dtype)
+
+
+def norm_grads(fn, x, w, b, r, dy):
+    """fn's output and the gradients of x, weight, bias and the residual."""
+    import torch
+
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    if r is not None:
+        leaves.append(r.clone().requires_grad_(True))
+    y = fn(*leaves[:3], 1e-5, leaves[3] if r is not None else None)
+    return [y.detach()] + list(torch.autograd.grad(y, leaves, dy))
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def norm_kink(x, w, b, r):
+    """The voxels whose LeakyReLU argument lies within fp32 rounding of 0,
+    where the kernel and the twin each take the slope their own rounding
+    gives (and a slope's choice moves every gradient of the instance
+    through the sums of dpre and dpre xhat)."""
+    import torch
+
+    dims = tuple(range(2, x.dim()))
+    x64 = x.double()
+    per_channel = (1, -1) + (1,) * len(dims)
+    xhat = (x64 - x64.mean(dims, keepdim=True)) * torch.rsqrt(
+        x64.var(dims, unbiased=False, keepdim=True) + 1e-5)
+    terms = [xhat * w.double().view(per_channel), b.double().view(per_channel)]
+    if r is not None:
+        terms.append(r.double())
+    return sum(terms).abs() <= 1e-5 * sum(t.abs() for t in terms)
+
+
+def check_instance_norm_kernel(dev):
+    """Phase 3, the fused instance norm at the six stage maps, with and
+    without the residual, in bf16 and fp32: y and its four gradients
+    against autograd through the plain twin, bit for bit on rerun, two
+    calls counted each way per case from 0; in bf16 its device ms beside
+    its bytes bounds, the plain twin and ATen's instance_norm (library_ms).
+    Returns the kernels-line row."""
+    import torch
+    import torch.nn.functional as F
+    from xlstm_hved_torch.ops import instance_norm_cuda as inc
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    row = {"name": "instance_norm", "route": "cuda", "source": f"{SOURCE_ROOT}/instance_norm.cu",
+           "replaces": None, "cases": 0}
+    worst = {"float32": 0.0, "bfloat16": 0.0}   # fp32: rel L2; bf16: share of the plain's
+    inc.run_forward.calls = inc.run_backward.calls = 0
+    for channels, side in NORM_STAGES:
+        shape = (2, channels, side, side, side)
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            for residual in (True, False):
+                label = f"{channels}x{side}^3_{dname}" + ("_res" if residual else "")
+                x, w, b, r, dy = norm_operands(gen, dev, shape, residual, dtype)
+                if dtype == torch.float32:   # no gradient where the slope is rounding's choice
+                    kink = norm_kink(x, w, b, r)
+                    dy = dy.masked_fill(kink, 0.0)
+                calls = inc.run_forward.calls, inc.run_backward.calls
+                fused = norm_grads(inc.instance_norm_act, x, w, b, r, dy)
+                again = norm_grads(inc.instance_norm_act, x, w, b, r, dy)
+                counted = inc.run_forward.calls - calls[0], inc.run_backward.calls - calls[1]
+                if counted != (2, 2):
+                    fail(f"instance_norm {label}: {counted} forward and backward calls "
+                         "counted for 2 each")
+                if not all(torch.equal(g, a) for g, a in zip(fused, again)):
+                    fail(f"instance_norm {label}: two runs differ")
+                if fused[0].dtype != dtype or not finite(*fused):
+                    fail(f"instance_norm {label}: y {fused[0].dtype}, finite {finite(*fused)}")
+                plain = norm_grads(inc.instance_norm_act_reference, x, w, b, r, dy)
+                if dtype == torch.float32:
+                    errs = [rel_l2(g, p) for g, p in zip(fused, plain)]
+                    share = float(kink.double().mean())
+                    if share > 1e-4 or max(errs) > 1e-5:
+                        fail(f"instance_norm {label}: relative L2 to the twin "
+                             f"{['%.3e' % e for e in errs]} (bound 1e-5), kink share {share:.2e}")
+                    worst["float32"] = max(worst["float32"], max(errs))
+                    detail = ("relative L2 to the twin " +
+                              " ".join(f"{n} {e:.2e}" for n, e in zip(NORM_OUTPUTS, errs)) +
+                              f" (kink share {share:.1e})")
+                else:
+                    exact = norm_grads(inc.instance_norm_act_reference,
+                                       *(None if t is None else t.double()
+                                         for t in (x, w, b, r, dy)))
+                    errs = [(rel_l2(g, e), rel_l2(p, e)) for g, p, e in zip(fused, plain, exact)]
+                    ratio = max(g / max(p, 1e-30) for g, p in errs)
+                    if any(g > 1.25 * p for g, p in errs):
+                        fail(f"instance_norm {label}: relative L2 to fp64 (kernel, twin) "
+                             f"{[('%.3e' % g, '%.3e' % p) for g, p in errs]} (bound 1.25x)")
+                    worst["bfloat16"] = max(worst["bfloat16"], ratio)
+                    detail = ("relative L2 to fp64, kernel / twin " +
+                              " ".join(f"{n} {g:.2e}/{p:.2e}"
+                                       for n, (g, p) in zip(NORM_OUTPUTS, errs)))
+                    del exact
+                del again, plain
+                row["cases"] += 1
+                line = f"  instance_norm {label}: {detail}; bit for bit on rerun"
+                if dtype == torch.bfloat16:
+                    row[label] = timing = norm_timing(inc, F, x, w, b, r, dy)
+                    line += (f" | kernel device {timing['fwd_ms']:.4f} + {timing['bwd_ms']:.4f}"
+                             f" ms fwd + bwd, {100 * timing['fwd_share']:.1f} / "
+                             f"{100 * timing['bwd_share']:.1f} % of the bytes bound "
+                             f"{timing['fwd_bound_ms']:.4f} / {timing['bwd_bound_ms']:.4f} ms "
+                             f"({100 * timing['fwd_passes_share']:.1f} / "
+                             f"{100 * timing['bwd_passes_share']:.1f} % of the two passes') | "
+                             f"twin {timing['plain_fwd_ms']:.4f} ms fwd, "
+                             f"{timing['plain_fwd_bwd_ms']:.4f} ms fwd + bwd | library "
+                             f"{timing['library_fwd_ms']:.4f} ms fwd, "
+                             f"{timing['library_fwd_bwd_ms']:.4f} ms fwd + bwd")
+                print(line, flush=True)
+                del x, w, b, r, dy, fused
+                torch.cuda.empty_cache()
+    row["forward_calls"], row["backward_calls"] = inc.run_forward.calls, inc.run_backward.calls
+    row["max_rel_l2_fp32"], row["max_bf16_err_of_plain"] = worst["float32"], worst["bfloat16"]
+    return row
+
+
+def norm_timing(inc, F, x, w, b, r, dy) -> dict:
+    """Device ms of the kernel's forward and backward calls, their bytes
+    bounds at HBM_BYTES_PER_S (`bound`: each operand read or written once,
+    the forward x (r) in and y out, the backward dy, y, x in and dx (dr)
+    out; `passes`: with the second read of x in the forward and of dy, y, x
+    in the backward), the plain twin's and ATen's instance_norm with the
+    same add and LeakyReLU, forward and forward with its backward."""
+    import torch
+
+    residual = r is not None
+    y, mean, rstd = inc.run_forward(x, w, b, 1e-5, r)
+    fwd = device_ms(lambda: inc.run_forward(x, w, b, 1e-5, r))
+    bwd = device_ms(lambda: inc.run_backward(dy, y, x, w, mean, rstd, residual))
+    wl, bl = w.to(x.dtype), b.to(x.dtype)
+
+    def library(xx, ww, bb, rr):
+        out = F.instance_norm(xx, weight=ww, bias=bb, eps=1e-5)
+        return F.leaky_relu(out if rr is None else out + rr, 0.01)
+
+    def twin(xx, ww, bb, rr):
+        return inc.instance_norm_act_reference(xx, ww, bb, 1e-5, rr)
+
+    timing = {"fwd_ms": fwd, "bwd_ms": bwd}
+    for name, fn, args in (("plain", twin, (x, w, b, r)), ("library", library, (x, wl, bl, r))):
+        leaves = [None if t is None else t.clone().requires_grad_(True) for t in args]
+        given = [t for t in leaves if t is not None]
+        with torch.no_grad():
+            timing[f"{name}_fwd_ms"] = device_ms(lambda: fn(*args), calls=5, repeats=3)
+        timing[f"{name}_fwd_bwd_ms"] = device_ms(
+            lambda: torch.autograd.grad(fn(*leaves), given, dy), calls=5, repeats=3)
+    nbytes = x.numel() * x.element_size()
+    for k, once, passes in (("fwd", 2 + residual, 3 + residual),
+                            ("bwd", 4 + residual, 7 + residual)):
+        timing[f"{k}_bound_ms"] = 1e3 * once * nbytes / HBM_BYTES_PER_S
+        timing[f"{k}_passes_bound_ms"] = 1e3 * passes * nbytes / HBM_BYTES_PER_S
+        timing[f"{k}_share"] = timing[f"{k}_bound_ms"] / timing[f"{k}_ms"]
+        timing[f"{k}_passes_share"] = timing[f"{k}_passes_bound_ms"] / timing[f"{k}_ms"]
+    timing["bound_ms"] = timing["fwd_bound_ms"] + timing["bwd_bound_ms"]
+    timing["bound_by"] = "bytes"
+    timing["library_ms"] = timing["library_fwd_bwd_ms"]
+    return timing
 
 
 def check_forward(dev, gen, name: str):
@@ -2313,12 +2522,16 @@ def xlstm_hemis(dev, gen, lines):
 def xlstm_gradient(dev, gen, lines):
     """Phase 11, 3: one UXlstmEnc 3-D backward at batch 2 of a seeded
     weighted sum of its deep-supervision outputs, through the kernels
-    against the plain mLSTM, per tensor to phase 6's rule. Returns the
-    launches of the kernel path."""
+    against the plain mLSTM, per tensor to phase 6's rule, with two fused
+    instance-norm calls forward and two backward per residual block.
+    Returns the mLSTM launches of the kernel path."""
     import torch
+    from xlstm_hved_torch.models.uxlstm import ResBlockND
+    from xlstm_hved_torch.ops import instance_norm_cuda as inc
 
     label, build, shape, vil_layers = xlstm_models()[0]
     model, plain = _seeded_pair(build, dev)
+    norms = 2 * sum(isinstance(m, ResBlockND) for m in model.modules())
     x = torch.rand(*shape, generator=gen, device=dev)
     with torch.no_grad():
         weights = [torch.randn(o.shape, generator=gen, device=dev)
@@ -2338,10 +2551,12 @@ def xlstm_gradient(dev, gen, lines):
         torch.cuda.reset_peak_memory_stats(dev)
         for fn in counters.values():
             fn.launches = 0
+        inc.run_forward.calls = inc.run_backward.calls = 0
         loss_k, got = grads(model)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         launches = {name: fn.launches for name, fn in counters.items()}
+        norm_calls = inc.run_forward.calls, inc.run_backward.calls
         loss_p, want = grads(plain)
         _, want2 = grads(plain)   # the run-to-run noise of the atomics left in the backward
         torch.cuda.synchronize()
@@ -2358,6 +2573,9 @@ def xlstm_gradient(dev, gen, lines):
     step_ms = timed[-1]
     if launches != dict.fromkeys(counters, vil_layers):
         fail(f"{label} gradient: launches {launches}, expected {vil_layers} of each")
+    if norm_calls != (norms, norms):
+        fail(f"{label} gradient: {norm_calls} fused instance-norm calls forward and backward, "
+             f"expected {norms} each")
     names = [n for n, _ in model.named_parameters()]
     floor = GRAD_FLOOR * max(absmax(t) for t in want)
     table = []
@@ -2377,7 +2595,8 @@ def xlstm_gradient(dev, gen, lines):
             f"{timed[0]:.1f} ms), peak "
             f"{peak:.2f} GiB, loss |d| {abs(loss_k - loss_p):.3e}, "
             f"worst {share:.3f} of the bound ({name}: max|d| {err:.3e}, plain vs plain "
-            f"{noise:.3e}), worst ViL tensor {vil_share:.3f}; launches {launches}")
+            f"{noise:.3e}), worst ViL tensor {vil_share:.3f}; launches {launches}; "
+            f"instance_norm calls {norm_calls[0]} forward, {norm_calls[1]} backward")
     print(f"  {line}", flush=True)
     lines.append(line)
     del model, plain, x, got, want, want2
@@ -3359,9 +3578,10 @@ def main():
     # ---- 2. build
     t0 = time.perf_counter()
     from xlstm_hved_torch.utils import cuda_build
-    from xlstm_hved_torch.ops import gate_cuda, mlstm_cuda
+    from xlstm_hved_torch.ops import gate_cuda, instance_norm_cuda, mlstm_cuda
 
-    report = cuda_build.build(mlstm_cuda.SOURCES + gate_cuda.SOURCES)
+    report = cuda_build.build(mlstm_cuda.SOURCES + gate_cuda.SOURCES +
+                              instance_norm_cuda.SOURCES)
     for name, rep in report.items():
         for line in ptxas_report(rep["log"]):
             spills = re.findall(r"(\d+) bytes spill", line)
@@ -3374,13 +3594,18 @@ def main():
     rows, worst, regime_worst = check_kernels(dev)
     check_wrapper_gradients(dev)
     rows["gate_conv"] = check_gate_kernel(dev)
+    rows["instance_norm"] = check_instance_norm_kernel(dev)
     done("kernel", t0, "mlstm_fwd, mlstm_fwd_states and mlstm_bwd agree with their twins "
                        f"on {len(KERNEL_CASES)} cases; worst max|d| " +
                        " ".join(f"{n} {e:.3e}" for n, e in worst.items()) +
                        f"; the {len(GATE_REGIME_CASES)} gate-regime cases' worst " +
                        " ".join(f"{n} {e:.3e}" for n, e in regime_worst.items()) +
                        f"; gate_conv within its bound on {len(GATE_CASES)} cases (worst "
-                       f"{rows['gate_conv']['max_err_of_bound']:.3f} of it)")
+                       f"{rows['gate_conv']['max_err_of_bound']:.3f} of it); instance_norm "
+                       f"on {rows['instance_norm']['cases']} cases (fp32 worst relative L2 "
+                       f"{rows['instance_norm']['max_rel_l2_fp32']:.2e}, bf16 worst "
+                       f"{rows['instance_norm']['max_bf16_err_of_plain']:.3f} of the twin's "
+                       "error)")
 
     # ---- 4. forward: the flagship and the ViL-decoder preset
     t0 = time.perf_counter()

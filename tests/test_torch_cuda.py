@@ -786,3 +786,147 @@ def test_ds_train_step_on_the_card_matches_the_cpu(dev):
     num = sum(float((card_change[n] - cpu_change[n]).double().square().sum()) for n in w0)
     den = sum(float(cpu_change[n].double().square().sum()) for n in w0)
     assert math.sqrt(num / den) <= 0.2
+
+
+# ---------------------------------------------------------------- the fused instance norm
+
+# (shape, residual): UXlstmEnc 3-D's stage-0 map at nnU-Net's BraTS plan with
+# and without the residual, its stages 1 and 5, a 2-D map and an odd volume
+# (its instances' lengths take value-by-value loads)
+NORM_CASES = [((2, 32, 128, 128, 128), True), ((2, 32, 128, 128, 128), False),
+              ((2, 64, 64, 64, 64), True), ((2, 320, 4, 4, 4), True), ((2, 32, 48, 40), True),
+              ((2, 3, 5, 7, 9), True)]
+NORM_IDS = ["x".join(map(str, s)) + ("_res" if r else "") for s, r in NORM_CASES]
+
+
+def _norm_operands(dev, shape, residual, dtype, seed=0):
+    """x, weight, bias, the residual (or None) and an upstream gradient. The
+    gradient has a mean per channel and a part along x, so the per-channel
+    sums dweight and dbias do not cancel (a cancelling sum's relative error
+    measures the order of summation, not the kernel)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = shape[1]
+    per_channel = (1, C) + (1,) * (len(shape) - 2)
+    x = 0.5 + 2 * torch.randn(shape, generator=g, device=dev)
+    w = 1 + 0.3 * torch.randn(C, generator=g, device=dev)
+    b = 0.3 * torch.randn(C, generator=g, device=dev)
+    r = torch.randn(shape, generator=g, device=dev).to(dtype) if residual else None
+    dy = (0.5 * torch.randn(shape, generator=g, device=dev) + 0.25 * x
+          + torch.randn(C, generator=g, device=dev).view(per_channel))
+    return x.to(dtype), w, b, r, dy.to(dtype)
+
+
+def _norm_grads(fn, x, w, b, r, dy):
+    """fn's output and the gradients of x, weight, bias and the residual."""
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    if r is not None:
+        leaves.append(r.clone().requires_grad_(True))
+    y = fn(*leaves[:3], 1e-5, leaves[3] if r is not None else None)
+    return [y.detach()] + list(torch.autograd.grad(y, leaves, dy))
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape,residual", NORM_CASES, ids=NORM_IDS)
+def test_instance_norm_kernel_matches_autograd_through_the_twin(dev, shape, residual, dtype):
+    """The fused Function against autograd through `instance_norm_act_reference`:
+    y and the gradients of x, the residual, the weight and the bias. fp32:
+    within 1e-5 relative L2 of the twin in fp32 (off LeakyReLU's kink for
+    the two gradients the slope decides). bf16: no farther (relative
+    L2) from the twin evaluated in fp64 on the same operands than the
+    twin's own bf16 path is, within 1.25x (the kernel rounds y once and
+    keeps dpre in fp32, where the composed path rounds after each op)."""
+    from xlstm_hved_torch.ops import instance_norm_cuda as inc
+
+    x, w, b, r, dy = _norm_operands(dev, shape, residual, dtype)
+    before = (inc.run_forward.calls, inc.run_backward.calls)
+    fused = _norm_grads(inc.instance_norm_act, x, w, b, r, dy)
+    assert (inc.run_forward.calls - before[0], inc.run_backward.calls - before[1]) == (1, 1)
+    assert fused[0].dtype == dtype and fused[1].dtype == dtype
+    composed = _norm_grads(inc.instance_norm_act_reference, x, w, b, r, dy)
+    names = ["y", "dx", "dweight", "dbias", "dresidual"]
+    if dtype == torch.float32:
+        # where LeakyReLU's argument lies within fp32 rounding of 0, each side
+        # takes the slope its own rounding gives: dx and the residual's
+        # gradient are compared off those voxels (a few in a million), every
+        # other number everywhere
+        dims = tuple(range(2, len(shape)))
+        x64 = x.double()
+        per_channel = (1, -1) + (1,) * len(dims)
+        xhat = (x64 - x64.mean(dims, keepdim=True)) * torch.rsqrt(
+            x64.var(dims, unbiased=False, keepdim=True) + 1e-5)
+        terms = [xhat * w.double().view(per_channel), b.double().view(per_channel)]
+        if residual:
+            terms.append(r.double())
+        kink = sum(terms).abs() <= 1e-5 * sum(t.abs() for t in terms)
+        assert float(kink.double().mean()) <= 1e-4
+        for name, got, want in zip(names, fused, composed):
+            if name in ("dx", "dresidual"):
+                got, want = got[~kink], want[~kink]
+            assert _rel_l2(got, want) <= 1e-5, (name, _rel_l2(got, want))
+        return
+    exact = _norm_grads(inc.instance_norm_act_reference,
+                        *(None if t is None else t.double() for t in (x, w, b, r, dy)))
+    for name, got, plain, want in zip(names, fused, composed, exact):
+        assert torch.isfinite(got).all(), name
+        assert _rel_l2(got, want) <= 1.25 * _rel_l2(plain, want), (
+            name, _rel_l2(got, want), _rel_l2(plain, want))
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 128, 128, 128), (2, 3, 5, 7, 9)], ids=str)
+def test_instance_norm_kernel_is_bitwise_the_same_on_rerun(dev, shape):
+    from xlstm_hved_torch.ops import instance_norm_cuda as inc
+
+    x, w, b, r, dy = _norm_operands(dev, shape, True, torch.bfloat16, seed=1)
+    first = _norm_grads(inc.instance_norm_act, x, w, b, r, dy)
+    again = _norm_grads(inc.instance_norm_act, x, w, b, r, dy)
+    for got, want in zip(first, again):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["not_contiguous", "fp64", "cpu"])
+def test_instance_norm_wrapper_raises(dev, case):
+    from xlstm_hved_torch.ops import instance_norm_cuda as inc
+
+    x, w, b, _, _ = _norm_operands(dev, (2, 4, 8, 8, 8), False, torch.bfloat16)
+    if case == "not_contiguous":
+        x = x.transpose(2, 4)
+    elif case == "fp64":
+        x = x.double()
+    else:
+        x, w, b = x.cpu(), w.cpu(), b.cpu()
+    with pytest.raises(ValueError):
+        inc.run_forward(x, w, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64], ids=str)
+def test_instance_norm_on_the_card_raises_on_dtypes_the_kernel_does_not_take(dev, dtype):
+    """A CUDA map in fp16 or fp64 reaches the kernel's Function and raises:
+    the composed expression never runs on the card."""
+    from xlstm_hved_torch.ops import instance_norm_cuda as inc
+
+    x, w, b, r, _ = _norm_operands(dev, (2, 4, 8, 8, 8), True, dtype)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        inc.instance_norm_act(x, w, b, 1e-5, r)
+
+
+def test_a_uxlstm_step_runs_every_norm_through_the_kernel(dev):
+    """UXlstmEnc 3-D at the small plan, bf16 convs: one forward and backward
+    call the fused forward and backward twice per residual block."""
+    from xlstm_hved_torch.models import build_uxlstm_from_plans
+    from xlstm_hved_torch.models.uxlstm import ResBlockND
+    from xlstm_hved_torch.ops import instance_norm_cuda as inc
+
+    torch.manual_seed(0)
+    net = build_uxlstm_from_plans(UXLSTM_SMALL_PLAN, 4, 3, True, dtype=torch.bfloat16).to(dev)
+    blocks = sum(isinstance(m, ResBlockND) for m in net.modules())
+    x = torch.rand(2, 4, 32, 32, 32, device=dev)
+    before = (inc.run_forward.calls, inc.run_backward.calls)
+    sum(out.float().square().mean() for out in net(x)).backward()
+    assert (inc.run_forward.calls - before[0], inc.run_backward.calls - before[1]) == (
+        2 * blocks, 2 * blocks)
+    assert all(torch.isfinite(p.grad).all() for p in net.parameters() if p.grad is not None)

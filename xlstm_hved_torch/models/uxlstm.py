@@ -31,9 +31,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from xlstm_hved_torch.nn.blocks import (Conv2d, Conv3d, at_least_fp32, leaky_relu,
-                                        set_compute_dtype)
+from xlstm_hved_torch.nn.blocks import Conv2d, Conv3d, at_least_fp32, set_compute_dtype
 from xlstm_hved_torch.nn.vil import ViLBlock
+from xlstm_hved_torch.ops.instance_norm_cuda import instance_norm_act
 from xlstm_hved_torch.utils.logging import span
 
 IntOrSeq = Union[int, Sequence]
@@ -59,7 +59,10 @@ def _conv(ndim: int, cin: int, cout: int, kernel, stride=1, padding=0) -> nn.Mod
 
 class InstanceNormND(nn.Module):
     """Affine instance norm over every spatial axis: fp32 statistics (the
-    centred two-pass variance), eps 1e-5, returned in x's dtype."""
+    centred two-pass variance), eps 1e-5, in x's dtype; then the optional
+    `residual` added and LeakyReLU(1e-2), one fused op
+    (`ops/instance_norm_cuda.py`: a kernel on the card, the composed
+    expression on the CPU). Each call is a `span("uxlstm.norm")`."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -67,14 +70,9 @@ class InstanceNormND(nn.Module):
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x):
-        dims = tuple(range(2, x.ndim))
-        x32 = at_least_fp32(x)
-        mean = x32.mean(dim=dims, keepdim=True)
-        var = (x32 - mean).square().mean(dim=dims, keepdim=True)
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+    def forward(self, x, residual=None):
+        with span("uxlstm.norm"):
+            return instance_norm_act(x, self.weight, self.bias, self.eps, residual)
 
 
 class ResBlockND(nn.Module):
@@ -98,11 +96,9 @@ class ResBlockND(nn.Module):
             self.conv3 = None
 
     def forward(self, x):
-        y = leaky_relu(self.norm1(self.conv1(x)))
-        y = self.norm2(self.conv2(y))
-        if self.conv3 is not None:
-            x = self.conv3(x)
-        return leaky_relu(y + x)
+        y = self.conv2(self.norm1(self.conv1(x)))
+        skip = x if self.conv3 is None else self.conv3(x)
+        return self.norm2(y, skip)
 
 
 class ViLMixerND(nn.Module):

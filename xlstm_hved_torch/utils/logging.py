@@ -99,10 +99,12 @@ def span(name: str, table: Optional[Dict[str, float]] = None):
 
     The names the program's hot path opens (`train.*` in engine/train.py,
     `sweep.prefix` / `sweep.suffix` in engine/evaluate.py, `vil.conv1d` in
-    nn/vil.py, `rsm.gate` in nn/blocks.py) are read by the benchmark's
-    per-layer metrics (perfbench/spans.py, perfbench/layer_metrics/): they
-    are part of its contract, and a metric whose span is renamed or removed
-    reads nothing until the benchmark follows."""
+    nn/vil.py, `rsm.gate` in nn/blocks.py, `segtrain.*` in
+    engine/seg_train.py, `vil.mixer` / `uxlstm.norm` in models/uxlstm.py)
+    are read by the benchmark's per-layer metrics (perfbench/spans.py,
+    perfbench/layer_metrics/): they are part of its contract, and a metric
+    whose span is renamed or removed reads nothing until the benchmark
+    follows."""
     traced = torch.autograd._profiler_enabled()
     if table is None and not traced:
         return _OFF
